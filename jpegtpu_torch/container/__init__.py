@@ -1,0 +1,1 @@
+"""Part of jpegtpu_torch; see the package docstring."""
