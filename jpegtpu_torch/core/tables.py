@@ -141,10 +141,11 @@ def quant_table_zigzag(quality: int, chroma: bool) -> np.ndarray:
 
 # BT.601 full-range RGB -> YCbCr, the exact coefficients of the reference CPU
 # path (src/utils.cpp:92-110; the GPU kernel's rounded variants .cl:23-24 are
-# a reference inconsistency we do not reproduce). y = rgb @ CSC_MATRIX + (0, 128,
-# 128); the chroma offset cancels the level shift inside mcu_operator.
+# a reference inconsistency we do not reproduce). y = rgb @ CSC_MATRIX +
+# CSC_OFFSET; the chroma offset cancels the level shift inside mcu_operator.
 CSC_MATRIX = np.array([
     [0.299,     -0.168736,  0.5],
     [0.587,     -0.331264, -0.418688],
     [0.114,      0.5,      -0.081312],
 ], dtype=np.float32)
+CSC_OFFSET = np.array([0.0, 128.0, 128.0], dtype=np.float32)

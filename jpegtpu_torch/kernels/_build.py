@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels on first use, load them, launch them.
 
-The four sources in ``csrc/`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, and loaded
+The sources in ``csrc/`` are compiled by ``nvcc`` for Hopper (``sm_90a``),
+each in its own process, into one shared library with a plain C interface,
+and loaded
 with ``ctypes``: no PyTorch headers, so the build takes seconds, and no
 ``ninja``. The library lands in ``_build/`` beside this file, named by a
 hash of the sources and flags, so an edited source is rebuilt and an
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -29,9 +31,10 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("pixel.cu", "block_pack.cu", "seg_merge.cu", "stuff.cu")
+SOURCES = ("pixel.cu", "block_pack.cu", "seg_merge.cu", "stuff.cu",
+           "stuff_chunks.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # ctypes types of the launchers' arguments; every launcher takes the CUDA
 # stream as its last argument.
 PTR = ctypes.c_void_p
@@ -57,7 +60,8 @@ def library_path() -> Path:
 
 
 def build() -> float:
-    """Compile the kernels if the library for these sources is missing.
+    """Compile the kernels if the library for these sources is missing:
+    one ``nvcc -c`` per source, all started together, then one link.
     Returns the seconds spent (0.0 when it was already built). The
     compiler's report (registers, spills) goes to ``<library>.log``."""
     out = library_path()
@@ -65,17 +69,26 @@ def build() -> float:
         return 0.0
     BUILD_DIR.mkdir(exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)                  # atomic: never a half-written .so
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        objs = [tmp / f"{Path(name).stem}.o" for name in SOURCES]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o",
+                               str(tmp / "lib.so"), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        out.with_suffix(".log").write_text("".join(logs))
+        failed = [(p.args[-1], p.returncode) for p in procs if p.returncode]
+        if failed or link.returncode:
+            raise RuntimeError(f"nvcc failed {failed or link.returncode}:\n"
+                               f"{''.join(logs)[-4000:]}")
+        os.replace(tmp / "lib.so", out)   # atomic: never a half-written .so
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return time.perf_counter() - t0
 
 

@@ -6,11 +6,14 @@ streams into restart segments (counterpart of
 ``_block_pack_mcu_kernel``) and ``seg_merge_mcu`` launches
 ``csrc/seg_merge.cu`` (the port of ``_seg_merge_v3_kernel``) on CUDA
 tensors. On CPU tensors each runs its plain twin (``*_plain``), built from
-the oracle formulation in ``jpegtpu_torch.entropy``.
+the oracle formulation in ``jpegtpu_torch.entropy``. ``pad_segments`` fills
+a ragged last segment with zero-length MCUs, so that every segment holds
+the same number of MCUs.
 
 Streams are u32 big-endian words stored as int32 bit patterns. Buffers are
 sized for the worst case: an MCU of g blocks holds g*52+2 words, a segment
-of mps MCUs mps*g*52+2 words, so no input can overflow them.
+of mps MCUs mps*g*52+2 words (a single segment rounded up to whole 4 KB
+chunks), so no input can overflow them.
 """
 
 from __future__ import annotations
@@ -36,6 +39,16 @@ SEG_MERGE = _build.Kernel("jt_seg_merge_mcu", [
 def mcu_words(g: int) -> int:
     """Worst-case words of one MCU stream of g blocks."""
     return g * assemble.WORDS_PER_BLOCK + 2
+
+
+def segment_words(n_seg: int, mps: int, mw: int) -> int:
+    """Words of each of n_seg segments of mps MCU streams of mw words:
+    their mw-2 data words each plus 2 of slack. A single segment, which the
+    chunk stuffing kernel takes, is rounded up to whole 1024-word (4 KB)
+    chunks, so that its glue views the words as chunks without a copy;
+    several segments are not, so small intervals stay small."""
+    words = mps * (mw - 2) + 2
+    return -(-words // 1024) * 1024 if n_seg == 1 else words
 
 
 def block_pack_mcu_pairs_plain(c2: torch.Tensor, cls: torch.Tensor,
@@ -83,14 +96,45 @@ def block_pack_mcu_pairs(c2: torch.Tensor, cls: torch.Tensor,
     return mwords, mlens
 
 
-def segment_offsets(mlens: torch.Tensor, n_seg: int,
-                    mps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def pad_segments(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
+                 mps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Append n_seg*mps - nM zero-length MCUs, so that a ragged last
+    segment holds mps MCUs like the others (``jpegtpu/encoder.py:266-275``).
+    A pad MCU adds no bits, so the segment's bytes do not change."""
+    pad = n_seg * mps - mwords.shape[0]
+    if pad < 0 or pad >= mps:
+        raise ValueError(f"{mwords.shape[0]} MCUs do not fill the last of "
+                         f"{n_seg} segments of {mps}")
+    if pad == 0:
+        return mwords, mlens
+    return (torch.cat([mwords, mwords.new_zeros((pad, mwords.shape[1]))]),
+            torch.cat([mlens, mlens.new_zeros(pad)]))
+
+
+def segment_offsets(mlens: torch.Tensor, n_seg: int, mps: int,
+                    mcu_bits_cap: int | None = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each MCU's exclusive bit offset within its segment ([nM] int32) and
-    each segment's bit count ([n_seg] int32): the glue before the merge."""
-    ml = mlens.reshape(n_seg, mps).to(torch.int64)
-    csum = torch.cumsum(ml, dim=1)
-    return ((csum - ml).reshape(-1).to(torch.int32),
-            csum[:, -1].to(torch.int32))
+    each segment's bit count ([n_seg] int32): the glue before the merge.
+
+    The sums are int64. A segment of 2^31 bits or more raises ValueError
+    instead of wrapping. On a CUDA tensor the check reads the sums back (a
+    device sync) only when mps MCUs of mcu_bits_cap bits (an MCU stream's
+    capacity) could reach 2^31."""
+    ml = mlens.reshape(-1).to(torch.int64)
+    # One flat scan over all MCUs, less each segment's base: a scan along
+    # many short rows (small intervals) is slow on the card.
+    incl = torch.cumsum(ml, dim=0).reshape(n_seg, mps)
+    excl = incl - ml.reshape(n_seg, mps)
+    base = excl[:, :1]
+    seg_bits = incl[:, -1] - base[:, 0]
+    if (mlens.device.type == "cpu" or mcu_bits_cap is None
+            or mps * mcu_bits_cap >= 1 << 31):
+        most = int(seg_bits.max())
+        if most >= 1 << 31:
+            raise ValueError(f"a segment holds {most} bits; a segment "
+                             f"must hold fewer than 2^31")
+    return (excl - base).reshape(-1).to(torch.int32), seg_bits.to(torch.int32)
 
 
 def seg_merge_mcu_plain(mwords: torch.Tensor, mlens: torch.Tensor,
@@ -106,7 +150,9 @@ def seg_merge_mcu_plain(mwords: torch.Tensor, mlens: torch.Tensor,
     words = assemble.from_i32_bits(mwords)
     bits = torch.where(lens > 0, words >> (32 - lens), 0)
     seg, seg_bits = assemble.pack_words(lens, bits, n_seg,
-                                        mps * (mw - 2) + 2)
+                                        segment_words(n_seg, mps, mw))
+    if int(seg_bits.max()) >= 1 << 31:
+        raise ValueError("a segment must hold fewer than 2^31 bits")
     assemble.pad_ones(seg, seg_bits)
     return assemble.to_i32_bits(seg), seg_bits.to(torch.int32)
 
@@ -114,9 +160,9 @@ def seg_merge_mcu_plain(mwords: torch.Tensor, mlens: torch.Tensor,
 def seg_merge_mcu(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
                   mps: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """MCU streams [nM, W] int32 (+ bit lengths [nM]) -> (segment streams
-    [n_seg, mps*(W-2)+2] int32, seg_bits [n_seg] int32): segment s joins
-    MCUs s*mps .. s*mps+mps-1 bit-contiguously and 1-pads its last byte.
-    Stream bits past an MCU's length are ignored."""
+    [n_seg, segment_words(n_seg, mps, W)] int32, seg_bits [n_seg] int32):
+    segment s joins MCUs s*mps .. s*mps+mps-1 bit-contiguously and 1-pads
+    its last byte. Stream bits past an MCU's length are ignored."""
     if mwords.device.type == "cpu":
         return seg_merge_mcu_plain(mwords, mlens, n_seg, mps)
     nm, mw = mwords.shape
@@ -125,9 +171,9 @@ def seg_merge_mcu(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
                          f"segments of {mps}")
     mwords = mwords.to(torch.int32).contiguous()
     mlens = mlens.to(torch.int32).contiguous()
-    off, seg_bits = segment_offsets(mlens, n_seg, mps)
+    off, seg_bits = segment_offsets(mlens, n_seg, mps, 32 * mw)
     _build.check_cuda(mwords, mlens, off)
-    seg_w = mps * (mw - 2) + 2
+    seg_w = segment_words(n_seg, mps, mw)
     out = torch.zeros((n_seg, seg_w), dtype=torch.int32, device=mwords.device)
     SEG_MERGE.launch(mwords.data_ptr(), mlens.data_ptr(), off.data_ptr(),
                      out.data_ptr(), nm, mps, mw, seg_w)

@@ -2,13 +2,19 @@
 affine map (counterpart of ``jpegtpu.kernels.fused_dctq``).
 
 CSC, 2x2 chroma averaging, level shift, 8x8 DCT, quantization and zigzag are
-all linear in the pixels, so for 4:2:0 one 16x16x3 MCU (768 inputs) maps to
-its 6 blocks x 64 coefficients (384 outputs) as
-``round_half_away(tiles @ M + bias)`` with ``M`` from ``mcu_operator``.
+all linear in the pixels, so one MCU maps to its blocks' zigzag
+coefficients as ``round_half_away(tiles @ M + bias)`` with ``M`` from
+``mcu_operator``: 768 -> 384 for 4:2:0, 384 -> 256 for 4:2:2, 192 -> 192
+for 4:4:4 and 4:4:4s (whose operator folds the 2x2 chroma smoothing in).
 
-``encode_blocks_pairs`` is the entry point: on a CUDA tensor it launches the
-hand-written kernel ``csrc/pixel.cu`` (the port of ``_pixel_kernel_nat``);
-on a CPU tensor it runs the plain twin ``encode_blocks_pairs_plain``.
+``encode_blocks`` dispatches as jpegtpu does (``fused_dctq.py:445-452,
+514-531``): the fused product for 4:2:0, 4:2:2, 4:4:4 and 8-aligned 4:4:4s,
+the staged ops of ``jpegtpu_torch.core.ops`` for gray and for 4:4:4s of
+another size (smoothing comes before padding there, which no per-MCU
+operator expresses). ``encode_blocks_pairs`` is the fused product: on a
+CUDA tensor it launches the hand-written kernel ``csrc/pixel.cu`` (the
+port of ``_pixel_kernel_nat``); on a CPU tensor it runs the plain twin
+``encode_blocks_pairs_plain``.
 
 The product accumulates in float64. jpegtpu's f32 product on CPU and an f32
 product summed in any other order disagree on a few coefficients that sit
@@ -27,12 +33,28 @@ import torch
 from jpegtpu_torch.core import ops, tables
 from jpegtpu_torch.kernels import _build
 
-MCU_IN = 16 * 16 * 3        # 4:2:0 MCU pixels, (y, x, c) row-major
-MCU_OUT = 6 * 64            # Y00 Y01 Y10 Y11 Cb Cr x 64 zigzag slots
-
-PIXEL = _build.Kernel("jt_pixel_420", [
+PIXEL = _build.Kernel("jt_pixel", [
     _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img, m, bias, out
-    _build.I64, _build.I64, _build.I64])               # n_mcu, nrx, row_bytes
+    _build.I64, _build.I64, _build.I64,               # n_mcu, nrx, row_bytes
+    _build.I32, _build.I32])                          # MCU height, width
+
+
+def fused_geometry(subsampling: str) -> Tuple[int, int, int, int]:
+    """(MCU height, MCU width, operator inputs, operator outputs) of a
+    fused mode."""
+    if subsampling not in ("420", "422", "444", "444s"):
+        raise ValueError(f"unsupported fused subsampling {subsampling!r}")
+    mh, mw = ops.mcu_shape(subsampling)
+    n_blocks = {"420": 6, "422": 4}.get(subsampling, 3)
+    return mh, mw, mh * mw * 3, n_blocks * 64
+
+
+def uses_fused(h: int, w: int, subsampling: str) -> bool:
+    """Whether an h x w image takes the fused product (else the staged
+    ops): gray never does, 4:4:4s only when h and w are multiples of 8."""
+    if subsampling == "gray":
+        return False
+    return subsampling != "444s" or not (h % 8 or w % 8)
 
 
 @functools.lru_cache(maxsize=32)
@@ -110,38 +132,55 @@ def mcu_tiles(img: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
 
 
 def encode_blocks_pairs_plain(img: torch.Tensor, m: torch.Tensor,
-                              bias: torch.Tensor) -> torch.Tensor:
-    """Plain twin of the pixel kernel: u8 [H, W, 3] -> int32 [nMCU, 384]
+                              bias: torch.Tensor,
+                              subsampling: str = "420") -> torch.Tensor:
+    """Plain twin of the pixel kernel: u8 [H, W, 3] -> int32 [nMCU, B*64]
     (block-major columns: block i's zigzag slots at [64i, 64i+64))."""
-    padded = ops.pad_to_multiple(img, (16, 16))
-    x = mcu_tiles(padded, 16, 16).to(torch.float64)
+    mh, mw, _, _ = fused_geometry(subsampling)
+    padded = ops.pad_to_multiple(img, (mh, mw))
+    x = mcu_tiles(padded, mh, mw).to(torch.float64)
     y = x @ m.to(torch.float64) + bias.to(torch.float64)
     return ops.round_half_away(y).to(torch.int32)
 
 
 def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
-                        bias: torch.Tensor) -> torch.Tensor:
-    """u8 RGB [H, W, 3] -> int32 [nMCU, 384] quantized zigzag coefficients
-    of the 4:2:0 MCUs, in raster MCU order. Launches ``csrc/pixel.cu`` on
-    a CUDA tensor; runs the plain twin on a CPU tensor."""
+                        bias: torch.Tensor,
+                        subsampling: str = "420") -> torch.Tensor:
+    """u8 RGB [H, W, 3] -> int32 [nMCU, B*64] quantized zigzag coefficients
+    of the MCUs of a fused mode, in raster MCU order, with ``m``/``bias``
+    that mode's ``mcu_operator``. Launches ``csrc/pixel.cu`` on a CUDA
+    tensor; runs the plain twin on a CPU tensor."""
     if img.dtype != torch.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected uint8 [H, W, 3], got {img.dtype} "
                          f"{tuple(img.shape)}")
+    mh, mw, n_in, n_out = fused_geometry(subsampling)
+    if tuple(m.shape) != (n_in, n_out) or tuple(bias.shape) != (n_out,):
+        raise ValueError(f"{subsampling} operator must be [{n_in}, {n_out}] "
+                         f"+ [{n_out}], got {tuple(m.shape)}, "
+                         f"{tuple(bias.shape)}")
     if img.device.type == "cpu":
-        return encode_blocks_pairs_plain(img, m, bias)
-    padded = ops.pad_to_multiple(img, (16, 16)).contiguous()
+        return encode_blocks_pairs_plain(img, m, bias, subsampling)
+    padded = ops.pad_to_multiple(img, (mh, mw)).contiguous()
     m = m.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
     _build.check_cuda(padded, m, bias)
-    if m.shape != (MCU_IN, MCU_OUT) or bias.shape != (MCU_OUT,):
-        raise ValueError(f"operator must be [{MCU_IN}, {MCU_OUT}] + "
-                         f"[{MCU_OUT}], got {tuple(m.shape)}, "
-                         f"{tuple(bias.shape)}")
     h, w, _ = padded.shape
-    nrx = w // 16
-    n_mcu = (h // 16) * nrx
-    out = torch.empty((n_mcu, MCU_OUT), dtype=torch.int32,
+    nrx = w // mw
+    n_mcu = (h // mh) * nrx
+    out = torch.empty((n_mcu, n_out), dtype=torch.int32,
                       device=padded.device)
     PIXEL.launch(padded.data_ptr(), m.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), n_mcu, nrx, w * 3)
+                 out.data_ptr(), n_mcu, nrx, w * 3, mh, mw)
     return out
+
+
+def encode_blocks(img: torch.Tensor, tables, subsampling: str) -> torch.Tensor:
+    """u8 [H, W, 3] (gray: [H, W]) -> int32 [nMCU, B*64] coefficients in
+    scan order, by the fused product where jpegtpu takes it and by the
+    staged ops elsewhere. ``tables`` is an ``EncoderTables`` of this mode."""
+    h, w = img.shape[0], img.shape[1]
+    if uses_fused(h, w, subsampling):
+        return encode_blocks_pairs(img, tables.m, tables.bias, subsampling)
+    c = ops.encode_blocks(img, tables.block_m, tables.block_bias,
+                          subsampling)
+    return c.reshape(c.shape[0], -1)

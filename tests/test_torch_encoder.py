@@ -1,6 +1,7 @@
 """The port's encoder end to end against jpegtpu.encode, plus its guards:
-no JAX import, no silent CPU fallback, NotImplementedError outside the
-4:2:0 rows-restart slice, and chip_smoke.py's golden hash."""
+no JAX import, no silent CPU fallback, every mode and restart interval that
+slice 1 refused now encoding like jpegtpu, and chip_smoke.py's golden
+hashes."""
 
 import hashlib
 import os
@@ -16,6 +17,7 @@ import torch
 import jpegtpu
 import jpegtpu.config
 import jpegtpu_torch
+from jpegtpu.core import tables as jtables
 from jpegtpu.entropy import huffman_tables as ht
 from jpegtpu.kernels import fused_dctq
 from jpegtpu_torch.container import jfif
@@ -63,10 +65,14 @@ def test_encode_matches_jpegtpu(image, q):
 def test_encode_with_jpegtpu_tables_matches(image, q):
     """The device program on tables built from jpegtpu's own arrays."""
     name, img = image
+    blk = [jtables.fused_block_operator(q, c) for c in (False, True)]
     tables = EncoderTables.from_numpy(*fused_dctq.mcu_operator(q, "420"),
-                                      *ht.packed_luts(), device="cpu")
+                                      *ht.packed_luts(),
+                                      np.stack([b[0] for b in blk]),
+                                      np.stack([b[1] for b in blk]),
+                                      device="cpu")
     restart = -(-img.shape[1] // 16)
-    buf, total = device_encode(torch.from_numpy(img), tables, restart)
+    buf, total = device_encode(torch.from_numpy(img), tables, "420", restart)
     got = jfif.wrap_jpeg(img.shape[0], img.shape[1], q, "420", restart,
                          buf[:int(total)].numpy().tobytes())
     assert got == _jpegtpu(name, img, q)
@@ -82,6 +88,17 @@ def test_golden_hash_matches_jpegtpu():
     got = jpegtpu_torch.encode(img, quality=chip_smoke.QUALITY,
                                subsampling="420", device="cpu")
     assert got == ref
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.GOLDENS))
+def test_path_golden_hashes_match_jpegtpu(name):
+    """Each other path's golden constant in chip_smoke.py is jpegtpu's file
+    of that path's golden image (chosen or built free of rounding ties)."""
+    sub, restart, image_name, sha = chip_smoke.GOLDENS[name]
+    ref = jpegtpu.encode(chip_smoke.golden_input(image_name),
+                         quality=chip_smoke.QUALITY, subsampling=sub,
+                         restart_interval=restart)
+    assert hashlib.sha256(ref).hexdigest() == sha
 
 
 def test_import_does_not_load_jax():
@@ -106,10 +123,16 @@ def test_cuda_device_without_cuda_raises():
     {"subsampling": "444"}, {"subsampling": "444s"}, {"subsampling": "422"},
     {"subsampling": "gray"}, {"restart_interval": 0},
     {"restart_interval": 3}])
-def test_outside_the_slice_raises(kw):
-    cfg = jpegtpu_torch.EncoderConfig(quality=90, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jpegtpu_torch.Encoder(cfg, device="cpu")
+def test_former_slice_limits_encode_like_jpegtpu(kw):
+    """The configurations slice 1 refused with NotImplementedError now
+    return jpegtpu's bytes (the odd 37x53 fixture, free of ties in every
+    mode at q90)."""
+    img = _random(37, 53, 11)
+    if kw.get("subsampling") == "gray":
+        img = np.ascontiguousarray(img[..., 0])
+    enc = jpegtpu_torch.Encoder(jpegtpu_torch.EncoderConfig(quality=90, **kw),
+                                device="cpu")
+    assert enc.encode(img) == jpegtpu.encode(img, quality=90, **kw)
 
 
 @pytest.mark.parametrize("kw", [

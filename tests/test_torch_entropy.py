@@ -205,7 +205,7 @@ def test_scan_matches_grouped_compaction(pallas_ref):
     """Fed jpegtpu's segments: the bytes of the stitched grouped stuffing
     kernel's output."""
     r = pallas_ref
-    buf, total = t_compact.compact_segments_stuffed(
+    buf, total = t_compact.compact_segments_stuffed_grouped(
         _u32_to_t(r["sw"]), torch.from_numpy(r["sb"]), r["restart"])
     assert int(total) == len(r["scan"])
     assert buf[:int(total)].numpy().tobytes() == r["scan"]
@@ -222,7 +222,7 @@ def test_scan_matches_oracle_assembly(case):
     dcd, cls = _dc_and_cls(coeffs, restart)
     mw, ml = _port_mcu_streams(coeffs, cls, dcd)
     sw, sb = t_entropy_pack.seg_merge_mcu(mw, ml, n_seg, restart)
-    buf, total = t_compact.compact_segments_stuffed(sw, sb, restart)
+    buf, total = t_compact.compact_segments_stuffed_grouped(sw, sb, restart)
     assert buf[:int(total)].numpy().tobytes() == want
     assert want.count(b"\xff\xd0") >= 1
 

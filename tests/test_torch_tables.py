@@ -32,7 +32,6 @@ def test_quant_and_operators_match(q):
                              tables.fused_block_operator(q, chroma)):
             assert got.dtype == want.dtype
             np.testing.assert_array_equal(got, want)
-    # 420 is the slice's; the other geometries wait for their slices.
     for sub in ("420", "422", "444", "444s"):
         for got, want in zip(t_fused_dctq.mcu_operator(q, sub),
                              fused_dctq.mcu_operator(q, sub)):
@@ -42,9 +41,10 @@ def test_quant_and_operators_match(q):
 
 @pytest.mark.parametrize("q", QUALITIES)
 def test_jfif_headers_match(q):
-    for h, w, restart in ((1080, 1920, 120), (37, 53, 4), (16, 16, 0)):
-        assert (t_jfif.wrap_jpeg(h, w, q, "420", restart, b"\x12\x34") ==
-                jfif.wrap_jpeg(h, w, q, "420", restart, b"\x12\x34"))
+    for sub in ("420", "422", "444", "444s", "gray"):
+        for h, w, restart in ((1080, 1920, 120), (37, 53, 4), (16, 16, 0)):
+            assert (t_jfif.wrap_jpeg(h, w, q, sub, restart, b"\x12\x34") ==
+                    jfif.wrap_jpeg(h, w, q, sub, restart, b"\x12\x34"))
 
 
 def test_zigzag_dct_csc_match():
@@ -52,6 +52,7 @@ def test_zigzag_dct_csc_match():
     np.testing.assert_array_equal(t_tables.dct_matrix_8x8(),
                                   tables.dct_matrix_8x8())
     np.testing.assert_array_equal(t_tables.CSC_MATRIX, tables.CSC_MATRIX)
+    np.testing.assert_array_equal(t_tables.CSC_OFFSET, tables.CSC_OFFSET)
 
 
 def test_huffman_tables_match():
@@ -70,11 +71,15 @@ def test_huffman_tables_match():
 def test_encoder_tables_from_jpegtpu_arrays():
     """EncoderTables built from jpegtpu's arrays holds the same tensors as
     the one the port builds from its copies."""
+    blk = [tables.fused_block_operator(90, c) for c in (False, True)]
     ref = EncoderTables.from_numpy(*fused_dctq.mcu_operator(90, "420"),
-                                   *ht.packed_luts())
+                                   *ht.packed_luts(),
+                                   np.stack([b[0] for b in blk]),
+                                   np.stack([b[1] for b in blk]))
     own = EncoderTables.for_quality(90)
     for name, buf in ref.named_buffers():
         got = dict(own.named_buffers())[name]
         assert got.dtype == buf.dtype and got.device.type == "cpu"
         assert torch.equal(got, buf), name
     assert ref.m.shape == (768, 384) and ref.ac_codes.shape == (2, 256)
+    assert ref.block_m.shape == (2, 64, 64)
