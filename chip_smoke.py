@@ -1,9 +1,12 @@
-"""GPU smoke test of jpegtpu_torch: build the five CUDA kernels, hold each
+"""GPU smoke test of jpegtpu_torch: build the six CUDA kernels, hold each
 against its plain torch twin on the card at 3840x2160, drive every encode
 path (``jpegtpu_torch.encode``: 4:2:0 with a restart marker every MCU row,
 the main path; 4:2:0 with no restart markers, with a ragged interval and
 with a marker after every MCU; 4:2:2, 4:4:4 (also with a marker after every
-MCU), 4:4:4s and gray) and check its bytes, then time everything.
+MCU), 4:4:4s and gray; 4:2:0 rows and restart 0 stuffed on the host,
+``device_stuff=False``; ``jpegtpu_torch.encode_batch`` of 8 x 1920x1080
+with ``device_stuff`` on and off) and check its bytes, then time
+everything.
 
     python3 chip_smoke.py
 
@@ -54,6 +57,9 @@ GOLDENS = {
 PATHS = (("420", "rows"), ("420", 0), ("420", 7), ("420", 1),
          ("422", "rows"), ("444", "rows"), ("444", 1), ("444s", "rows"),
          ("gray", "rows"))
+# The 3840x2160 paths stuffed on the host (device_stuff=False).
+HOST_STUFF_PATHS = (("420", "rows"), ("420", 0))
+BATCH = 8                  # images of GOLDEN_SHAPE in the batch paths
 # The paths whose device time the profiler splits by kernel.
 PROFILED = (("420", "rows"), ("420", 0), ("420", 7), ("420", 1),
             ("444", 1))
@@ -114,6 +120,16 @@ def golden_blocks(h: int = GOLDEN_SHAPE[0], w: int = GOLDEN_SHAPE[1],
     if planes == 1:
         return out[0]
     return np.stack([out[0], out[1], out[1]], axis=-1)
+
+
+def batch_images(full: np.ndarray) -> np.ndarray:
+    """[BATCH, 1080, 1920, 3]: golden_image() first, then 1920x1080 crops
+    of the 3840x2160 bench image at fixed offsets."""
+    h, w = GOLDEN_SHAPE
+    offsets = ((0, 0), (0, 1920), (1080, 0), (1080, 1920), (540, 960),
+               (37, 101), (1000, 1777))
+    crops = [full[y:y + h, x:x + w] for y, x in offsets[:BATCH - 1]]
+    return np.stack([golden_image()] + crops)
 
 
 def golden_input(name: str) -> np.ndarray:
@@ -247,7 +263,9 @@ def main() -> int:
     from jpegtpu_torch.config import EncoderConfig
     from jpegtpu_torch.container import jfif
     from jpegtpu_torch.core import ops
-    from jpegtpu_torch.encoder import EncoderTables, device_encode, geometry
+    from jpegtpu_torch import native
+    from jpegtpu_torch.encoder import (EncoderTables, device_encode,
+                                       device_encode_batch, geometry)
     from jpegtpu_torch.entropy import scan
     from jpegtpu_torch.kernels import _build, compact, entropy_pack, fused_dctq
 
@@ -297,12 +315,34 @@ def main() -> int:
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
         return int((d != 0).sum()), int(d.max()) if d.numel() else 0
 
-    def stuff_diff(fn, plain, sw_, sb_, restart_):
-        buf_, tot_ = fn(sw_, sb_, restart_)
-        buf_p_, tot_p_ = plain(sw_, sb_, restart_)
+    def stuff_diff(fn, plain, sw_, sb_, *args):
+        buf_, tot_ = fn(sw_, sb_, *args)[:2]
+        buf_p_, tot_p_ = plain(sw_, sb_, *args)[:2]
         tot_, tot_p_ = int(tot_), int(tot_p_)
         n_by, e_by = diff(buf_[:tot_], buf_p_[:tot_])
         return int(tot_ != tot_p_) + n_by, max(e_by, abs(tot_ - tot_p_)), tot_
+
+    def compact_diff(sw_, sb_):
+        """K6 against its twin: the byte counts, and the first sum(nbytes)
+        bytes of the stream."""
+        buf_, nb_ = compact.compact_segments(sw_, sb_)
+        buf_p_, nb_p_ = compact.compact_segments_plain(sw_, sb_)
+        tot_ = int(nb_p_.sum())
+        n_nb, e_nb = diff(nb_, nb_p_)
+        n_by, e_by = diff(buf_[:tot_], buf_p_[:tot_])
+        return n_nb + n_by, max(e_nb, e_by), tot_
+
+    def seg_set(c, sub, r):
+        """(segment words, seg_bits, r) of coefficients c at interval r,
+        through K2 and K3."""
+        n_luma = EncoderConfig(subsampling=sub).n_luma
+        nm, b = c.shape[0], c.shape[1] // 64
+        ns, mps = geometry(nm, r)
+        d = scan.dc_diffs_from_dc(c[:, ::64], n_luma, r).reshape(-1)
+        k = (torch.arange(nm * b, device=dev) % b >= n_luma).to(torch.int32)
+        a, bl = entropy_pack.block_pack_mcu_pairs(c, k, d, *luts)
+        a, bl = entropy_pack.pad_segments(a, bl, ns, mps)
+        return (*entropy_pack.seg_merge_mcu(a, bl, ns, mps), r)
 
     errs = {}
     coeffs = fused_dctq.encode_blocks_pairs(x, tables.m, tables.bias)
@@ -378,6 +418,36 @@ def main() -> int:
     errs["stuff_chunks"] = max(errs["stuff_chunks"], e)
     report(f"K5 chunk stuffing, {n_seg} rows-restart segments", n_bad, e)
 
+    # K6 on one segment set per layout: rows, one segment, one MCU each.
+    sw1, sb1, _ = seg_set(coeffs, "420", 1)
+    k6_sets = {"420 rows": (sw, sb), "420 restart 0": (sw0, sb0),
+               "420 restart 1": (sw1, sb1)}
+    errs["compact"] = 0
+    for label, (sw_, sb_) in k6_sets.items():
+        n_bad, e, tot = compact_diff(sw_, sb_)
+        errs["compact"] = max(errs["compact"], e)
+        report(f"K6 compaction, {label}: {sw_.shape[0]} segments of "
+               f"{sw_.shape[1]} words, {tot} bytes", n_bad, e)
+
+    # K4 with a marker table numbered within each image, on the segments
+    # of the 8 x 1920x1080 batch (68 segments an image).
+    batch = batch_images(img)
+    xb = torch.from_numpy(batch).to(dev)
+    bmy, bmx = ops.mcu_grid(*GOLDEN_SHAPE, "420")
+    swb, sbb, _ = seg_set(fused_dctq.encode_blocks_batch(xb, tables, "420"),
+                          "420", bmx)
+    n_bad, e, total_b = stuff_diff(
+        compact.compact_segments_stuffed_grouped,
+        compact.compact_segments_stuffed_grouped_plain, swb, sbb, bmx, bmy)
+    off_k = compact.compact_segments_stuffed_grouped(swb, sbb, bmx, bmy)[2]
+    off_p = compact.compact_segments_stuffed_grouped_plain(swb, sbb, bmx,
+                                                           bmy)[2]
+    n_off, e_off = diff(off_k, off_p)
+    errs["stuff"] = max(errs["stuff"], e, e_off)
+    report(f"K4 stuffing with per-image markers, {BATCH} images of {bmy} "
+           f"segments, total {total_b} bytes, image offsets", n_bad + n_off,
+           max(e, e_off))
+
     # 4. Every path end to end, through the public entry point, each with
     # the launch counts set to 0 just before it and read just after.
     kernels = (("pixel", fused_dctq.PIXEL, "pixel.cu",
@@ -389,7 +459,9 @@ def main() -> int:
                ("stuff", compact.STUFF, "stuff.cu",
                 "jpegtpu/kernels/compact.py:1004"),
                ("stuff_chunks", compact.STUFF_CHUNKS, "stuff_chunks.cu",
-                "jpegtpu/kernels/compact.py:317"))
+                "jpegtpu/kernels/compact.py:317"),
+               ("compact", compact.COMPACT, "compact.cu",
+                "jpegtpu/kernels/compact.py:44"))
     launches = {n: 0 for n, _, _, _ in kernels}
 
     def path_input(sub):
@@ -403,8 +475,9 @@ def main() -> int:
         r = cfg.resolve_restart(pmx)
         return cfg, r, geometry(pmy * pmx, r)
 
-    def encode_plain(image, sub, restart_interval):
-        """The same program on the plain twins, on the card."""
+    def encode_plain(image, sub, restart_interval, device_stuff=True):
+        """The same program on the plain twins, on the card (without
+        device_stuff: the compaction twin, then the host stuffing)."""
         cfg, r, (ns, mps) = path_geometry(image, sub, restart_interval)
         hh, ww = image.shape[:2]
         t = tabs[sub]
@@ -421,36 +494,82 @@ def main() -> int:
         a, bl = entropy_pack.block_pack_mcu_pairs_plain(c, k, d, *luts)
         a, bl = entropy_pack.pad_segments(a, bl, ns, mps)
         s, sbits = entropy_pack.seg_merge_mcu_plain(a, bl, ns, mps)
-        stuff = (compact.compact_segments_stuffed_grouped_plain if ns > 1
-                 else compact.compact_segments_stuffed_plain)
-        out, tot = stuff(s, sbits, r)
-        return jfif.wrap_jpeg(hh, ww, QUALITY, sub, r,
-                              out[:int(tot)].cpu().numpy().tobytes())
+        if not device_stuff:
+            out, nb = compact.compact_segments_plain(s, sbits)
+            nb = nb.cpu().numpy()
+            scan_bytes = native.stuff_assemble_contig(
+                out[:int(nb.sum())].cpu().numpy(), nb, r)
+        else:
+            stuff = (compact.compact_segments_stuffed_grouped_plain
+                     if ns > 1 else compact.compact_segments_stuffed_plain)
+            out, tot = stuff(s, sbits, r)[:2]
+            scan_bytes = out[:int(tot)].cpu().numpy().tobytes()
+        return jfif.wrap_jpeg(hh, ww, QUALITY, sub, r, scan_bytes)
 
-    for sub, restart_interval in PATHS:
+    def counted(fn):
+        """fn() with every launch count set to 0 just before it; (its
+        result, the launches it made per kernel)."""
+        for _, k, _, _ in kernels:
+            k.launches = 0
+        out = fn()
+        counts = {n: k.launches for n, k, _, _ in kernels}
+        for n in launches:
+            launches[n] += counts[n]
+        return out, counts
+
+    for sub, restart_interval, ds in (
+            [(sub, r, True) for sub, r in PATHS] +
+            [(sub, r, False) for sub, r in HOST_STUFF_PATHS]):
         image = path_input(sub)
         _, r, (ns, _) = path_geometry(image, sub, restart_interval)
         want = {"pixel": fused_dctq.uses_fused(h, w, sub), "block_pack": 1,
-                "seg_merge": 1, "stuff": ns > 1, "stuff_chunks": ns == 1}
-        for _, k, _, _ in kernels:
-            k.launches = 0
-        jpg = jpegtpu_torch.encode(image, quality=QUALITY, subsampling=sub,
-                                   restart_interval=restart_interval)
-        counts = {n: k.launches for n, k, _, _ in kernels}
-        label = f"{w}x{h} q{QUALITY} {sub} restart {restart_interval!r}"
+                "seg_merge": 1, "stuff": ds and ns > 1,
+                "stuff_chunks": ds and ns == 1, "compact": not ds}
+        jpg, counts = counted(lambda: jpegtpu_torch.encode(
+            image, quality=QUALITY, subsampling=sub,
+            restart_interval=restart_interval, device_stuff=ds))
+        label = (f"{w}x{h} q{QUALITY} {sub} restart {restart_interval!r}"
+                 f"{'' if ds else ' device_stuff=False'}")
         print(f"[e2e] encode {label}: {len(jpg)} bytes, launches {counts}")
         missed = [n for n, on in want.items() if on and counts[n] < 1]
         if missed:
             raise AssertionError(f"{label}: kernels {missed} did not run")
-        for n in launches:
-            launches[n] += counts[n]
-        if jpg != encode_plain(image, sub, restart_interval):
+        if jpg != encode_plain(image, sub, restart_interval, ds):
             raise AssertionError(f"{label}: bytes differ from the "
                                  f"plain-twin pipeline")
         n_rst = ns - 1 if r > 0 else 0
         check_scan_structure(jpg, n_rst)
         print(f"[e2e] {label}: bytes equal to the plain-twin pipeline on "
               f"the GPU; {n_rst} RST markers in order; stuffing valid")
+
+    # The batch paths: one program over 8 x 1920x1080 (golden_image()
+    # first), each kernel launched once, every file equal to the
+    # per-image encode of its image, RST markers 0..7 from each image's
+    # start, and golden_image()'s file at GOLDEN_SHA256.
+    singles = [jpegtpu_torch.encode(im, quality=QUALITY) for im in batch]
+    for ds in (True, False):
+        files, counts = counted(lambda: jpegtpu_torch.encode_batch(
+            list(batch), quality=QUALITY, device_stuff=ds))
+        label = (f"encode_batch {BATCH} x {GOLDEN_SHAPE[1]}x"
+                 f"{GOLDEN_SHAPE[0]} q{QUALITY} 420 rows device_stuff={ds}")
+        print(f"[e2e] {label}: {sum(map(len, files))} bytes, launches "
+              f"{counts}")
+        want = {"pixel": 1, "block_pack": 1, "seg_merge": 1,
+                "stuff": int(ds), "stuff_chunks": 0, "compact": int(not ds)}
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, want {want}")
+        for i, jpg in enumerate(files):
+            if jpg != singles[i]:
+                raise AssertionError(f"{label}: file {i} differs from the "
+                                     f"per-image encode")
+            check_scan_structure(jpg, bmy - 1)
+        digest = hashlib.sha256(files[0]).hexdigest()
+        if digest != GOLDEN_SHA256:
+            raise AssertionError(f"{label}: golden sha256 {digest} != "
+                                 f"{GOLDEN_SHA256}")
+        print(f"[e2e] {label}: {BATCH} files equal to the per-image "
+              f"encodes; {bmy - 1} RST markers in order in each; file 0 "
+              f"sha256 {digest} (golden)")
 
     # 5. Golden files from jpegtpu.
     gold = jpegtpu_torch.encode(golden_image(), quality=QUALITY,
@@ -510,6 +629,8 @@ def main() -> int:
                              sw0, sb0, 0),
                          lambda: compact.compact_segments_stuffed_plain(
                              sw0, sb0, 0)),
+        "compact": (lambda: compact.compact_segments(sw, sb),
+                    lambda: compact.compact_segments_plain(sw, sb)),
     }
     for sub in ("422", "444", "444s"):
         t = tabs[sub]
@@ -530,32 +651,42 @@ def main() -> int:
          time_ms(lambda: compact.compact_segments_stuffed_grouped(
              sw0, sb0, 0)))
 
+    # K6 on its three segment sets: wrapper with glue (CUDA events), the
+    # kernel alone (profiler) and its bound (the valid bytes read once and
+    # written once, plus each segment's bit count in and byte count out).
+    for label, (sw_, sb_) in k6_sets.items():
+        k6 = lambda: compact.compact_segments(sw_, sb_)  # noqa: E731
+        nb_ = int(((sb_.to(torch.int64) + 7) // 8).sum())
+        by_ = 2 * nb_ + sw_.shape[0] * 12
+        print(f"[time] K6 compact.cu on {label} ({sw_.shape[0]} segments, "
+              f"{nb_} bytes): wrapper {time_ms(k6):.4f} ms, kernel alone "
+              f"(profiler) {kernel_device_ms(k6, '::compact_kernel(')} ms, "
+              f"bound {by_ / HBM_BYTES_PER_S * 1e3:.6f} ms ({by_} bytes)  "
+              f"[{card}]")
+    k4b = lambda: compact.compact_segments_stuffed_grouped(  # noqa: E731
+        swb, sbb, bmx, bmy)
+    print(f"[time] K4 stuff.cu with per-image markers on the batch's "
+          f"{swb.shape[0]} segments: wrapper {time_ms(k4b):.4f} ms, kernel "
+          f"alone (profiler) {kernel_device_ms(k4b, '::stuff_kernel(')} ms"
+          f"  [{card}]")
+    del k6_sets, swb, sbb
+
     # K4 and K5 on the same multi-segment sets, in turns (K4, K5, K5, K4),
     # wrapper with glue (CUDA events) and kernel alone (profiler). K5 takes
     # the words padded to whole 4 KB chunks, padded outside the timing (the
     # layout a single segment has); its scan must equal K4's.
-    def seg_set(c, sub, r):
-        n_luma = EncoderConfig(subsampling=sub).n_luma
-        nm, b = c.shape[0], c.shape[1] // 64
-        ns, mps = geometry(nm, r)
-        d = scan.dc_diffs_from_dc(c[:, ::64], n_luma, r).reshape(-1)
-        k = (torch.arange(nm * b, device=dev) % b >= n_luma).to(torch.int32)
-        a, bl = entropy_pack.block_pack_mcu_pairs(c, k, d, *luts)
-        a, bl = entropy_pack.pad_segments(a, bl, ns, mps)
-        return (*entropy_pack.seg_merge_mcu(a, bl, ns, mps), r)
-
     c444 = fused_dctq.encode_blocks_pairs(x, tabs["444"].m, tabs["444"].bias,
                                           "444")
     seg_sets = {"420 rows": (sw, sb, restart),
                 "420 restart 7": seg_set(coeffs, "420", 7),
-                "420 restart 1": seg_set(coeffs, "420", 1),
+                "420 restart 1": (sw1, sb1, 1),
                 "444 rows": seg_set(c444, "444",
                                     ops.mcu_grid(h, w, "444")[1])}
     del c444
     for label, (sw_, sb_, r_) in seg_sets.items():
         sw5 = torch.nn.functional.pad(sw_,
                                       (0, -sw_.shape[1] % compact.CHUNK_WORDS))
-        b4, t4 = compact.compact_segments_stuffed_grouped(sw_, sb_, r_)
+        b4, t4, _ = compact.compact_segments_stuffed_grouped(sw_, sb_, r_)
         b5, t5 = compact.compact_segments_stuffed(sw5, sb_, r_)
         t4, t5 = int(t4), int(t5)
         n_bad, e = diff(b5[:t4], b4[:t4])
@@ -574,7 +705,7 @@ def main() -> int:
               f"{kernel_device_ms(k4, '::stuff_kernel(')} ms, K5 "
               f"{kernel_device_ms(k5, '::stuff_chunks_kernel(')} ms  "
               f"[{card}]")
-    del seg_sets
+    del seg_sets, sw1, sb1
 
     # The library yardstick of K1: one float64 torch.matmul of the MCU
     # tiles by the operator (timed here, never called by the port).
@@ -605,6 +736,66 @@ def main() -> int:
         enc.encode(img)                   # ends in the host fetch: synced
     line("encode with host upload + fetch + JFIF wrap (host clock)",
          (time.perf_counter() - t_wall) * 1e3 / TIMING_REPS)
+
+    # device_stuff=False at 3840x2160 rows: the device program, then the
+    # fetch of the byte counts (the sync), the fetch of exactly the
+    # compacted bytes, the host stuffing and the wrap, each on the host
+    # clock, over TIMING_REPS after warm-up.
+    dev_ms["420", "rows", "host stuffing"] = time_ms(
+        lambda: device_encode(x, tables, "420", restart, False))
+    line("encode on device (no host fetch), 420 rows device_stuff=False",
+         dev_ms["420", "rows", "host stuffing"])
+
+    def host_split():
+        t0 = time.perf_counter()
+        xh = torch.from_numpy(img).to(dev)
+        buf_, nb_ = device_encode(xh, tables, "420", restart, False)
+        nb_ = nb_.cpu().numpy()
+        t1 = time.perf_counter()
+        stream_ = buf_[:int(nb_.sum())].cpu().numpy()
+        t2 = time.perf_counter()
+        scan_ = native.stuff_assemble_contig(stream_, nb_, restart)
+        t3 = time.perf_counter()
+        jfif.wrap_jpeg(h, w, QUALITY, "420", restart, scan_)
+        t4 = time.perf_counter()
+        return np.array([t1 - t0, t2 - t1, t3 - t2, t4 - t3]) * 1e3
+
+    host_split()
+    split = sum(host_split() for _ in range(TIMING_REPS)) / TIMING_REPS
+    print(f"[time] encode device_stuff=False, 420 rows (host clock, ms): "
+          f"upload + device program + byte-count fetch {split[0]:.4f}, "
+          f"stream fetch {split[1]:.4f}, host stuffing {split[2]:.4f}, "
+          f"wrap {split[3]:.4f}, total {split.sum():.4f}  [{card}]")
+    enc_h = jpegtpu_torch.Encoder(jpegtpu_torch.EncoderConfig(
+        quality=QUALITY, device_stuff=False))
+    enc_h.encode(img)
+    t_wall = time.perf_counter()
+    for _ in range(TIMING_REPS):
+        enc_h.encode(img)
+    line("encode device_stuff=False with upload + fetch + host stuffing + "
+         "wrap (host clock)", (time.perf_counter() - t_wall) * 1e3 /
+         TIMING_REPS)
+
+    # The batch: one program for 8 x 1920x1080 beside 8 single device
+    # encodes of the same images, in turns (batch, singles, singles, batch).
+    bmpix = BATCH * GOLDEN_SHAPE[0] * GOLDEN_SHAPE[1] / 1e6
+    for ds in (True, False):
+        one = lambda: device_encode_batch(  # noqa: E731
+            xb, tables, "420", bmx, ds)
+        each = lambda: [device_encode(xb[i], tables, "420", bmx, ds)  # noqa
+                        for i in range(BATCH)]
+        b1, s1, s2, b2 = time_ms(one), time_ms(each), time_ms(each), \
+            time_ms(one)
+        dev_ms["batch", ds] = min(b1, b2)
+        for label, ms in (("one batch program", min(b1, b2)),
+                          (f"{BATCH} single device encodes", min(s1, s2))):
+            print(f"[time] {BATCH} x {GOLDEN_SHAPE[1]}x{GOLDEN_SHAPE[0]} "
+                  f"420 rows device_stuff={ds}, {label}: {ms:.4f} ms per "
+                  f"batch  {bmpix / ms * 1e3:.2f} MPix/s  [{card}]")
+    print("[profile] encode_batch device program, device_stuff=True")
+    profile_device_encode(
+        lambda: device_encode_batch(xb, tables, "420", bmx, True),
+        dev_ms["batch", True], card)
     for sub, restart_interval in PROFILED:
         _, r, _ = path_geometry(img, sub, restart_interval)
         print(f"[profile] {sub} restart {restart_interval!r}")
@@ -628,6 +819,7 @@ def main() -> int:
         "seg_merge": 2 * valid_mcu_words * 4 + n_mcu * 8 + n_seg * 4,
         "stuff": nbytes_rows + n_seg * 12 + total,
         "stuff_chunks": nbytes0 + n_chunks * 12 + 16 + total0,
+        "compact": 2 * nbytes_rows + n_seg * 12,
     }
     flops = {}
     for sub in ("420", "422", "444", "444s"):

@@ -1,11 +1,14 @@
 """Encoder configuration for the PyTorch port.
 
-The fields that change the output bytes, with ``jpegtpu.config``'s
-validation and messages. jpegtpu's kernel-variant selectors (``pixel_path``,
-``fuse_bp``, ``compact_kb``, ``bp_merge_rot``, ``compact_groups``) and its
-first-pass ``bits_budget`` choose between TPU kernels that give the same
-bytes; the port has one kernel per stage and sizes every buffer for the
-worst case, so it has none of them.
+The fields that change the output bytes (``quality``, ``subsampling``,
+``restart_interval``), with ``jpegtpu.config``'s validation and messages,
+and ``device_stuff``, which chooses where the scan is stuffed (on the
+device, or on the host after a device compaction) and changes no bytes.
+jpegtpu's kernel-variant selectors (``pixel_path``, ``fuse_bp``,
+``compact_kb``, ``bp_merge_rot``, ``compact_groups``) and its first-pass
+``bits_budget`` choose between TPU kernels that give the same bytes; the
+port has one kernel per stage and sizes every buffer for the worst case,
+so it has none of them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,11 @@ class EncoderConfig:
     # Restart interval in MCUs; "rows" makes each MCU row one restart
     # segment, 0 disables restart markers.
     restart_interval: int | str = "rows"
+    # Stuff the scan on the device (0xFF00 stuffing and RSTn markers in the
+    # stuffing kernel; the host fetches the finished scan). False compacts
+    # the segments on the device and stuffs them on the host
+    # (``native.stuff_assemble_contig``). The same bytes either way.
+    device_stuff: bool = True
 
     def __post_init__(self):
         if not (1 <= self.quality <= 100):

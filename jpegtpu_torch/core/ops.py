@@ -65,9 +65,13 @@ def pad_to_multiple(img: torch.Tensor, multiple) -> torch.Tensor:
     if ph == 0 and pw == 0:
         return img
     symmetric = not (ph >= h or pw >= w)
-    rows = _pad_index(h, ph, symmetric, img.device)
-    cols = _pad_index(w, pw, symmetric, img.device)
-    return img.index_select(-3, rows).index_select(-2, cols)
+    # Gather only along an axis that grows (a 1920x1080 batch pads its
+    # rows alone).
+    if ph:
+        img = img.index_select(-3, _pad_index(h, ph, symmetric, img.device))
+    if pw:
+        img = img.index_select(-2, _pad_index(w, pw, symmetric, img.device))
+    return img
 
 
 def rgb_to_ycbcr(img: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,13 @@
-"""Top-level encoder: one uint8 image -> complete JFIF/JPEG bytes, on torch
-(counterpart of ``jpegtpu.encoder``'s single-image path,
-``_device_encode_pallas`` with ``device_stuff``, and
-``Encoder.encode_to_scan`` / ``encode``), for every subsampling mode and
-restart interval.
+"""Top-level encoder: uint8 images -> complete JFIF/JPEG bytes, on torch
+(counterpart of ``jpegtpu.encoder``: ``_device_encode_pallas`` and
+``_device_encode_pallas_batch``, ``Encoder.encode_to_scan`` / ``encode``,
+``encode_batch`` / ``_encode_batch_fused``), for every subsampling mode,
+restart interval and ``device_stuff`` setting.
 
 The device program runs up to five kernels with plain torch glue between
 them:
 
-    pixel       fused_dctq.encode_blocks          u8 -> coefficients
+    pixel       fused_dctq.encode_blocks(_batch)  u8 -> coefficients
                 (the fused kernel, or the staged ops for gray and
                 non-8-aligned 4:4:4s)
     (glue)      scan.dc_diffs_from_dc, the class vector
@@ -15,27 +15,35 @@ them:
     (glue)      zero-length pad MCUs for a ragged last segment, each MCU's
                 bit offset in its segment
     seg merge   entropy_pack.seg_merge_mcu          -> segment bitstreams
-    (glue)      byte and 0xFF counts, offsets
+    (glue)      byte and 0xFF counts, offsets, the marker table
     stuffing    compact.compact_segments_stuffed_grouped (several segments)
                 or compact.compact_segments_stuffed (one)  -> the scan
+    or, without device_stuff,
+    compaction  compact.compact_segments   -> the segments back to back
 
-and the host fetches exactly the scan's bytes and wraps them in the JFIF
-headers. On a CUDA device the hand-written kernels run; on the CPU (the
-tests pass ``device="cpu"``) each stage runs its plain twin. Every buffer
-has its worst-case size, so jpegtpu's first-pass bit budget and its re-run
-on overflow have no counterpart here, and neither have its TPU-layout
-choices that change no bytes (``mcu_group``, ``compact_groups``, the 8-way
-virtual split of a single segment).
+and the host fetches exactly the scan's bytes (without device_stuff: the
+byte counts, then exactly the compacted bytes, which it stuffs with
+``native.stuff_assemble_contig``) and wraps them in the JFIF headers. A
+batch of same-shaped images runs one program whose kernels each launch
+once, the images flattened into the MCU dimension. On a CUDA device the
+hand-written kernels run; on the CPU (the tests pass ``device="cpu"``)
+each stage runs its plain twin. Every buffer has its worst-case size, so
+jpegtpu's first-pass bit budget and its re-run on overflow have no
+counterpart here, and neither have its TPU-layout choices that change no
+bytes (``mcu_group``, ``compact_groups``, the 8-way virtual split of a
+single segment).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import warnings
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from jpegtpu_torch import native
 from jpegtpu_torch.config import EncoderConfig
 from jpegtpu_torch.container import jfif
 from jpegtpu_torch.core import ops, tables
@@ -129,26 +137,101 @@ def geometry(n_mcu: int, restart: int) -> Tuple[int, int]:
     return -(-n_mcu // restart), min(restart, n_mcu)
 
 
-def device_encode(img: torch.Tensor, tables: EncoderTables, subsampling: str,
-                  restart: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """u8 [H, W, 3] (gray [H, W]) on the tables' device -> (u8 scan buffer,
-    total bytes scalar): the device program."""
+class BatchGeometryError(ValueError):
+    """A batch cannot take the one-program batch path (geometry only;
+    genuine input errors raise plain ValueError)."""
+
+
+def batch_segments(n_mcu: int, restart: int) -> int:
+    """Segments per image of a batch program: restart segments must divide
+    each image's MCU count, so that image boundaries are segment starts
+    (jpegtpu's ``_jitted_encode_batch``, ``encoder.py:401-406``)."""
+    if restart <= 0 or n_mcu % restart:
+        raise BatchGeometryError(
+            "batched encode requires restart segments dividing each "
+            "image's MCU count (use restart_interval='rows')")
+    return n_mcu // restart
+
+
+def _segments(coeffs: torch.Tensor, tables: EncoderTables, subsampling: str,
+              restart: int, n_seg: int,
+              mps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coefficients [nM, B*64] -> (segment streams, seg_bits) of n_seg
+    segments of mps MCUs: the DC differences (reset at every segment
+    start), the block pack, zero-length pad MCUs for a ragged last segment
+    and the segment merge."""
     n_luma = EncoderConfig(subsampling=subsampling).n_luma
-    coeffs = fused_dctq.encode_blocks(img, tables, subsampling)
     n_mcu, b = coeffs.shape[0], coeffs.shape[1] // 64
-    n_seg, mps = geometry(n_mcu, restart)
     dcd = scan.dc_diffs_from_dc(coeffs[:, ::64], n_luma, restart).reshape(-1)
     cls = (torch.arange(n_mcu * b, device=coeffs.device) % b >= n_luma
            ).to(torch.int32)
     mwords, mlens = entropy_pack.block_pack_mcu_pairs(coeffs, cls, dcd,
                                                       *tables.luts())
     mwords, mlens = entropy_pack.pad_segments(mwords, mlens, n_seg, mps)
-    seg_words, seg_bits = entropy_pack.seg_merge_mcu(mwords, mlens, n_seg,
-                                                     mps)
+    return entropy_pack.seg_merge_mcu(mwords, mlens, n_seg, mps)
+
+
+def device_encode(img: torch.Tensor, tables: EncoderTables, subsampling: str,
+                  restart: int, device_stuff: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """u8 [H, W, 3] (gray [H, W]) on the tables' device -> the device
+    program's output: with device_stuff, (u8 scan buffer, total bytes
+    scalar); without, (u8 compacted stream, nbytes [n_seg] int64), which
+    the host stuffs (``native.stuff_assemble_contig``)."""
+    coeffs = fused_dctq.encode_blocks(img, tables, subsampling)
+    n_seg, mps = geometry(coeffs.shape[0], restart)
+    seg_words, seg_bits = _segments(coeffs, tables, subsampling, restart,
+                                    n_seg, mps)
+    if not device_stuff:
+        return compact.compact_segments(seg_words, seg_bits)
     if n_seg > 1:
         return compact.compact_segments_stuffed_grouped(seg_words, seg_bits,
-                                                        restart)
+                                                        restart)[:2]
     return compact.compact_segments_stuffed(seg_words, seg_bits, restart)
+
+
+def device_encode_batch(imgs: torch.Tensor, tables: EncoderTables,
+                        subsampling: str, restart: int,
+                        device_stuff: bool = True) -> Tuple[torch.Tensor, ...]:
+    """u8 [n, H, W, 3] (gray [n, H, W]) on the tables' device -> one device
+    program for the batch (jpegtpu's ``_device_encode_pallas_batch``,
+    ``encoder.py:298-395``). The batch is flattened into the MCU
+    dimension; with restart segments that divide each image's MCU count
+    (else ``BatchGeometryError``), image boundaries are segment starts, so
+    the DC resets and the merge need no per-image case, and each kernel
+    launches once. With device_stuff, (u8 scan buffer, total bytes scalar,
+    each image's first byte [n] int64): the images' scans back to back,
+    RST markers numbered from 0 in each; without, (u8 compacted stream,
+    nbytes [n, segments per image] int64)."""
+    n = imgs.shape[0]
+    my, mx = ops.mcu_grid(imgs.shape[1], imgs.shape[2], subsampling)
+    spi = batch_segments(my * mx, restart)
+    coeffs = fused_dctq.encode_blocks_batch(imgs, tables, subsampling)
+    seg_words, seg_bits = _segments(coeffs, tables, subsampling, restart,
+                                    n * spi, restart)
+    if not device_stuff:
+        buf, nbytes = compact.compact_segments(seg_words, seg_bits)
+        return buf, nbytes.reshape(n, spi)
+    return compact.compact_segments_stuffed_grouped(seg_words, seg_bits,
+                                                    restart, spi)
+
+
+def _pixels(img: np.ndarray, subsampling: str, lead: int = 0) -> np.ndarray:
+    """Check an image (lead = 0) or a batch of them (lead = 1): uint8
+    [..., H, W, 3] RGB, or for gray [..., H, W] or [..., H, W, 1], given
+    back as [..., H, W]."""
+    img = np.asarray(img)
+    if subsampling == "gray":
+        if img.ndim == lead + 3 and img.shape[-1] == 1:
+            img = img[..., 0]
+        if img.ndim != lead + 2:
+            raise ValueError(
+                f"gray mode expects [H, W] input, got {img.shape}")
+    elif img.ndim != lead + 3 or img.shape[-1] != 3:
+        raise ValueError(f"expected [H, W, 3] RGB, got {img.shape}")
+    if img.dtype != np.uint8:
+        raise ValueError(f"expected uint8 pixels, got {img.dtype}")
+    return np.ascontiguousarray(img)
 
 
 class Encoder:
@@ -161,42 +244,100 @@ class Encoder:
         self.tables = EncoderTables.for_quality(
             self.config.quality, self.config.subsampling, self.device)
 
-    def encode_to_scan(self, img: np.ndarray) -> Tuple[bytes, int]:
-        """Device pipeline + exact-size fetch -> (entropy scan bytes,
-        restart interval)."""
-        img = np.asarray(img)
-        if self.config.subsampling == "gray":
-            if img.ndim == 3 and img.shape[2] == 1:
-                img = img[..., 0]
-            if img.ndim != 2:
-                raise ValueError(
-                    f"gray mode expects [H, W] input, got {img.shape}")
-        elif img.ndim != 3 or img.shape[2] != 3:
-            raise ValueError(f"expected [H, W, 3] RGB, got {img.shape}")
-        if img.dtype != np.uint8:
-            raise ValueError(f"expected uint8 pixels, got {img.dtype}")
-        h, w = img.shape[:2]
+    def restart_for(self, h: int, w: int) -> int:
+        """The concrete restart interval of an h x w image."""
         _, mx = ops.mcu_grid(h, w, self.config.subsampling)
-        restart = self.config.resolve_restart(mx)
-        x = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
-        buf, total = device_encode(x, self.tables, self.config.subsampling,
-                                   restart)
-        scan_bytes = buf[:int(total)].cpu().numpy().tobytes()
-        return scan_bytes, restart
+        return self.config.resolve_restart(mx)
+
+    def encode_to_scan(self, img: np.ndarray) -> Tuple[bytes, int]:
+        """Device pipeline + exact-size fetch (+ host stuffing without
+        device_stuff) -> (entropy scan bytes, restart interval)."""
+        img = _pixels(img, self.config.subsampling)
+        restart = self.restart_for(*img.shape[:2])
+        x = torch.from_numpy(img).to(self.device)
+        buf, meta = device_encode(x, self.tables, self.config.subsampling,
+                                  restart, self.config.device_stuff)
+        if self.config.device_stuff:
+            return buf[:int(meta)].cpu().numpy().tobytes(), restart
+        # The byte counts first (a tiny fetch, and the sync), then exactly
+        # the compacted bytes (jpegtpu's "stream" branch, encoder.py:585-595).
+        nbytes = meta.cpu().numpy()
+        stream = buf[:int(nbytes.sum())].cpu().numpy()
+        return native.stuff_assemble_contig(stream, nbytes, restart), restart
 
     def encode(self, img: np.ndarray) -> bytes:
         """uint8 RGB [H, W, 3] (gray: [H, W] or [H, W, 1]) -> complete
         JFIF/JPEG bytes."""
         h, w = np.shape(img)[:2]
         scan_bytes, restart = self.encode_to_scan(img)
+        return self.wrap(h, w, restart, scan_bytes)
+
+    def wrap(self, h: int, w: int, restart: int, scan_bytes: bytes) -> bytes:
         return jfif.wrap_jpeg(h, w, self.config.quality,
                               self.config.subsampling, restart, scan_bytes)
+
+    def encode_batch_fused(self, imgs: np.ndarray) -> List[bytes]:
+        """Same-shaped images [n, H, W, 3] (gray [n, H, W] or [n, H, W, 1])
+        -> n files from one device program (jpegtpu's
+        ``_encode_batch_fused``, ``encoder.py:664-741``). Raises
+        ``BatchGeometryError`` before any device work when the restart
+        segments do not divide each image's MCU count."""
+        imgs = _pixels(imgs, self.config.subsampling, lead=1)
+        n, h, w = imgs.shape[:3]
+        restart = self.restart_for(h, w)
+        my, mx = ops.mcu_grid(h, w, self.config.subsampling)
+        batch_segments(my * mx, restart)
+        x = torch.from_numpy(imgs).to(self.device)
+        out = device_encode_batch(x, self.tables, self.config.subsampling,
+                                  restart, self.config.device_stuff)
+        if self.config.device_stuff:
+            buf, total, img_off = out
+            # One fetch of the offsets and the total, one of the scan.
+            bounds = torch.cat([img_off, total.reshape(1)]).cpu().numpy()
+            raw = buf[:int(bounds[-1])].cpu().numpy()
+            return [self.wrap(h, w, restart,
+                              raw[bounds[i]:bounds[i + 1]].tobytes())
+                    for i in range(n)]
+        buf, nbytes = out
+        nbytes = nbytes.cpu().numpy()                   # [n, spi]
+        ends = np.cumsum(nbytes.sum(axis=1))
+        raw = buf[:int(ends[-1])].cpu().numpy()
+        return [self.wrap(h, w, restart, native.stuff_assemble_contig(
+                    raw[e - nb.sum():e], nb, restart))
+                for nb, e in zip(nbytes, ends)]
 
 
 def encode(img: np.ndarray, quality: int = 50, subsampling: str = "420",
            restart_interval: int | str = "rows",
-           device: torch.device | str | None = None) -> bytes:
-    """One-shot convenience wrapper; device None means "cuda"."""
+           device: torch.device | str | None = None, **kw) -> bytes:
+    """One-shot convenience wrapper; device None means "cuda"; other
+    ``EncoderConfig`` fields (``device_stuff``) as keywords."""
     cfg = EncoderConfig(quality=quality, subsampling=subsampling,
-                        restart_interval=restart_interval)
+                        restart_interval=restart_interval, **kw)
     return Encoder(cfg, device=device).encode(img)
+
+
+def encode_batch(imgs: Sequence[np.ndarray],
+                 config: EncoderConfig | None = None,
+                 device: torch.device | str | None = None,
+                 **kw) -> List[bytes]:
+    """Encode a batch of images (jpegtpu's ``encode_batch``,
+    ``encoder.py:635-661``). More than one image, all of one shape, run as
+    one device program over [n, H, W, 3]; a batch whose restart segments
+    do not divide each image's MCU count (restart 0, or such an interval)
+    warns and is encoded image by image, as are mixed shapes. Pass an
+    ``EncoderConfig`` as `config`, or its fields as keywords; device None
+    means "cuda"."""
+    if config is not None and kw:
+        raise TypeError("pass either config= or EncoderConfig keywords")
+    enc = Encoder(config or EncoderConfig(**kw), device=device)
+    imgs = list(imgs)
+    if len(imgs) > 1 and len({np.shape(im) for im in imgs}) == 1:
+        try:
+            return enc.encode_batch_fused(np.stack(imgs))
+        except BatchGeometryError as e:
+            # A throughput caller should know it pays n programs, not one.
+            warnings.warn(f"encode_batch: fused batch path unavailable "
+                          f"({e}); falling back to per-image encodes",
+                          RuntimeWarning, stacklevel=2)
+    return [enc.encode(im) for im in imgs]

@@ -98,27 +98,26 @@ def explode_bytes(words: torch.Tensor) -> torch.Tensor:
 
 
 def stuff_and_splice(by: torch.Tensor, nbytes: torch.Tensor,
-                     seg_start: torch.Tensor, restart: int,
+                     seg_start: torch.Tensor, mnum: torch.Tensor,
                      cap: int) -> torch.Tensor:
     """Scatter segment bytes to their stuffed positions: byte i of segment
     s lands at seg_start[s] + i + (#0xFF before i); the 0x00 after each
-    0xFF comes from the zero-filled output; RST marker 0xFF, 0xD0 + s % 8
-    follows every segment but the last when restart > 0.
+    0xFF comes from the zero-filled output; the RST marker 0xFF, mnum[s]
+    follows segment s where mnum[s] != 0.
 
     by: [n_seg, B] int64 bytes, nbytes [n_seg] valid bytes per segment,
-    seg_start [n_seg] stuffed start offsets. Returns u8 [cap]."""
-    n_seg, b_cap = by.shape
+    seg_start [n_seg] stuffed start offsets, mnum [n_seg] marker numbers.
+    Returns u8 [cap]."""
     dev = by.device
-    pos = torch.arange(b_cap, device=dev)[None, :]
+    pos = torch.arange(by.shape[1], device=dev)[None, :]
     valid = pos < nbytes[:, None]
     is_ff = ((by == 0xFF) & valid).to(torch.int64)
     shift = torch.cumsum(is_ff, dim=1) - is_ff
     out_pos = seg_start[:, None] + pos + shift
     out = torch.zeros(cap, dtype=torch.uint8, device=dev)
     out[out_pos[valid]] = by[valid].to(torch.uint8)
-    if restart > 0 and n_seg > 1:
-        end = seg_start[:-1] + nbytes[:-1] + is_ff[:-1].sum(dim=1)
-        s = torch.arange(n_seg - 1, device=dev)
-        out[end] = 0xFF
-        out[end + 1] = (0xD0 + s % 8).to(torch.uint8)
+    marked = mnum > 0
+    end = (seg_start + nbytes + is_ff.sum(dim=1))[marked]
+    out[end] = 0xFF
+    out[end + 1] = mnum[marked].to(torch.uint8)
     return out

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("pixel.cu", "block_pack.cu", "seg_merge.cu", "stuff.cu",
-           "stuff_chunks.cu")
+           "stuff_chunks.cu", "compact.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # ctypes types of the launchers' arguments; every launcher takes the CUDA

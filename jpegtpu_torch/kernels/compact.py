@@ -1,7 +1,9 @@
-"""Device stuffing: segment bitstreams -> the finished entropy-coded scan
-(counterpart of ``jpegtpu.kernels.compact``).
+"""Device compaction and stuffing: segment bitstreams -> the finished
+entropy-coded scan, or the segments' bytes back to back for the host to
+stuff (counterpart of ``jpegtpu.kernels.compact``).
 
-Two kernels, as in jpegtpu, chosen by the encoder from the segment count:
+Two stuffing kernels, as in jpegtpu, chosen by the encoder from the
+segment count:
 
 - ``compact_segments_stuffed`` (one segment, or any count in one chain)
   launches ``csrc/stuff_chunks.cu``, the port of ``_compact_stuff_kernel``
@@ -11,10 +13,16 @@ Two kernels, as in jpegtpu, chosen by the encoder from the segment count:
 - ``compact_segments_stuffed_grouped`` (several segments) launches
   ``csrc/stuff.cu``, the port of ``_compact_stuff_kernel_gkb``, one thread
   block per segment; its glue ``stuff_precompute`` gives each segment's
-  stuffed start.
+  stuffed start and each image's first byte (a batch is one scan of whole
+  image scans, its RST markers numbered within each image).
 
-On CPU tensors each wrapper runs its plain twin (``*_plain``). Both return
-one contiguous u8 buffer whose first ``total`` bytes are the scan.
+Both return one contiguous u8 buffer whose first ``total`` bytes are the
+scan. With ``device_stuff=False`` the encoder takes ``compact_segments``
+instead, which launches ``csrc/compact.cu``, the port of
+``_compact_kernel``: each segment trimmed to its bytes, the segments joined
+with no stuffing and no markers, one thread block per (segment, 4 KB
+chunk) at offsets from a cumsum of the byte counts. On CPU tensors each
+wrapper runs its plain twin (``*_plain``).
 """
 
 from __future__ import annotations
@@ -31,13 +39,18 @@ CHUNK_WORDS = 1024                  # one 4 KB chunk of segment words
 CHUNK_BYTES = 4 * CHUNK_WORDS
 
 STUFF = _build.Kernel("jt_stuff_segments", [
-    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # words, nbytes, start, out
-    _build.I64, _build.I64, _build.I32])               # n_seg, stride, markers
+    _build.PTR, _build.PTR, _build.PTR,   # words, nbytes, seg_start
+    _build.PTR, _build.PTR,               # mnum, out
+    _build.I64, _build.I64])              # n_seg, stride
 
 STUFF_CHUNKS = _build.Kernel("jt_stuff_chunks", [
     _build.PTR, _build.PTR, _build.PTR,   # words, chunk_off, in_chunk
     _build.PTR, _build.PTR, _build.PTR,   # seg_end, nchunks, mnum
     _build.PTR,                           # out
+    _build.I64, _build.I64, _build.I64])  # n_seg, stride, chunks a segment
+
+COMPACT = _build.Kernel("jt_compact_segments", [
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # words, nbytes, off, out
     _build.I64, _build.I64, _build.I64])  # n_seg, stride, chunks a segment
 
 
@@ -48,15 +61,20 @@ def scan_capacity(n_seg: int, seg_words: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def marker_table(n_seg: int, restart: int,
+def marker_table(n_seg: int, restart: int, segs_per_image: int | None = None,
                  device: torch.device | str = "cpu") -> torch.Tensor:
     """mnum [n_seg] int32: the second byte of the RST marker after each
-    segment, 0xD0 + s % 8, and 0 (no marker) after the last segment or when
-    restart is 0 (``compact.py:942-947``, one image). Cached: callers must
-    not write to it."""
-    s = torch.arange(n_seg, dtype=torch.int32, device=device)
-    keep = (s != n_seg - 1) & (restart > 0)
-    return torch.where(keep, 0xD0 + s % 8, 0).to(torch.int32)
+    segment, 0 for none (``compact.py:942-947``). The n_seg segments are
+    images of spi = segs_per_image segments each (default one image):
+    segment s is number s % spi of its image, followed by 0xD0 + (s % spi)
+    % 8, except an image's last segment, and none at all when restart is 0.
+    Cached: callers must not write to it."""
+    spi = segs_per_image or n_seg
+    if n_seg % spi:
+        raise ValueError(f"{n_seg} segments are not whole images of {spi}")
+    within = torch.arange(n_seg, dtype=torch.int32, device=device) % spi
+    keep = (within != spi - 1) & (restart > 0)
+    return torch.where(keep, 0xD0 + within % 8, 0).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=64)
@@ -102,12 +120,13 @@ def _bytes_left(seg_words: torch.Tensor,
 
 
 def stuff_precompute(seg_words: torch.Tensor, seg_bits: torch.Tensor,
-                     restart: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                torch.Tensor]:
+                     mnum: torch.Tensor, segs_per_image: int | None = None
+                     ) -> Tuple[torch.Tensor, ...]:
     """(nbytes [n_seg] int32, 0xFF count [n_seg] int64, stuffed start
-    [n_seg] int64, total bytes int64 scalar) of the scan that
-    ``compact_segments_stuffed_grouped`` writes."""
+    [n_seg] int64, each image's first byte ``img_off`` [n_seg / spi]
+    int64, total bytes int64 scalar) of the scan that
+    ``compact_segments_stuffed_grouped`` writes with marker table mnum, for
+    images of spi = segs_per_image segments (default one image)."""
     n_seg, w = seg_words.shape
     nbytes = (seg_bits.to(torch.int64) + 7) >> 3
     # The 0xFF bytes among each segment's first nbytes, in one pass over a
@@ -116,11 +135,11 @@ def stuff_precompute(seg_words: torch.Tensor, seg_bits: torch.Tensor,
     by = seg_words.contiguous().view(torch.uint8)
     ffc = ((by == 0xFF) & (_stream_pos(w, seg_words.device) < nbytes[:, None])
            ).sum(dim=1)
-    # A 2-byte RST marker follows every segment but the last.
-    mnum = marker_table(n_seg, restart, device=seg_words.device)
+    # A 2-byte RST marker follows each segment with a marker number.
     seg_len = nbytes + ffc + 2 * (mnum > 0)
     seg_start = torch.cumsum(seg_len, dim=0) - seg_len
-    return nbytes.to(torch.int32), ffc, seg_start, seg_len.sum()
+    return (nbytes.to(torch.int32), ffc, seg_start,
+            seg_start[::segs_per_image or n_seg], seg_len.sum())
 
 
 def stuff_precompute_chunks(seg_words: torch.Tensor, seg_bits: torch.Tensor,
@@ -214,37 +233,89 @@ def compact_segments_stuffed(seg_words: torch.Tensor, seg_bits: torch.Tensor,
 
 def compact_segments_stuffed_grouped_plain(seg_words: torch.Tensor,
                                            seg_bits: torch.Tensor,
-                                           restart: int
-                                           ) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
+                                           restart: int,
+                                           segs_per_image: int | None = None
+                                           ) -> Tuple[torch.Tensor, ...]:
     """Plain twin of the per-segment stuffing kernel: explode the words to
     bytes, then scatter them to their stuffed positions and splice the RST
     markers (``assemble.stuff_and_splice``)."""
     n_seg, w = seg_words.shape
-    nbytes, _, seg_start, total = stuff_precompute(seg_words, seg_bits,
-                                                   restart)
+    mnum = marker_table(n_seg, restart, segs_per_image, seg_words.device)
+    nbytes, _, seg_start, img_off, total = stuff_precompute(
+        seg_words, seg_bits, mnum, segs_per_image)
     out = assemble.stuff_and_splice(
         assemble.explode_bytes(seg_words), nbytes.to(torch.int64),
-        seg_start, restart, scan_capacity(n_seg, w))
-    return out, total
+        seg_start, mnum, scan_capacity(n_seg, w))
+    return out, total, img_off
 
 
 def compact_segments_stuffed_grouped(seg_words: torch.Tensor,
-                                     seg_bits: torch.Tensor, restart: int
-                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """As ``compact_segments_stuffed`` (RST 0xD0 + s % 8 after every segment
-    but the last when restart > 0), with one thread block per segment."""
+                                     seg_bits: torch.Tensor, restart: int,
+                                     segs_per_image: int | None = None
+                                     ) -> Tuple[torch.Tensor, ...]:
+    """As ``compact_segments_stuffed``, with one thread block per segment,
+    for images of segs_per_image segments each (default one image): RST
+    0xD0 + i % 8 after segment i of an image but its last, when restart >
+    0 (``marker_table``). Returns (u8 buffer, total bytes int64 scalar,
+    each image's first byte in the scan [n_seg / segs_per_image] int64)."""
     if seg_words.device.type == "cpu":
         return compact_segments_stuffed_grouped_plain(seg_words, seg_bits,
-                                                      restart)
+                                                      restart, segs_per_image)
     n_seg, w = seg_words.shape
     seg_words = seg_words.to(torch.int32).contiguous()
-    nbytes, _, seg_start, total = stuff_precompute(seg_words, seg_bits,
-                                                   restart)
-    _build.check_cuda(seg_words, nbytes, seg_start)
+    mnum = marker_table(n_seg, restart, segs_per_image, seg_words.device)
+    nbytes, _, seg_start, img_off, total = stuff_precompute(
+        seg_words, seg_bits, mnum, segs_per_image)
+    _build.check_cuda(seg_words, nbytes, seg_start, mnum)
     out = torch.empty(scan_capacity(n_seg, w), dtype=torch.uint8,
                       device=seg_words.device)
     STUFF.launch(seg_words.data_ptr(), nbytes.data_ptr(),
-                 seg_start.data_ptr(), out.data_ptr(), n_seg, w,
-                 int(restart > 0))
-    return out, total
+                 seg_start.data_ptr(), mnum.data_ptr(), out.data_ptr(),
+                 n_seg, w)
+    return out, total, img_off
+
+
+def compact_offsets(seg_bits: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nbytes [n_seg] int64, each segment's first byte in the compacted
+    stream [n_seg] int64): ceil(bits / 8) and its exclusive cumsum."""
+    nbytes = (seg_bits.to(torch.int64) + 7) >> 3
+    return nbytes, torch.cumsum(nbytes, dim=0) - nbytes
+
+
+def compact_segments_plain(seg_words: torch.Tensor, seg_bits: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the compaction kernel: explode the words to bytes and
+    keep each segment's first nbytes in row-major order, which is stream
+    order."""
+    n_seg, w = seg_words.shape
+    nbytes, _ = compact_offsets(seg_bits)
+    by = assemble.explode_bytes(seg_words)
+    keep = torch.arange(4 * w, device=by.device) < nbytes[:, None]
+    kept = by[keep].to(torch.uint8)
+    out = torch.zeros(4 * n_seg * w, dtype=torch.uint8, device=by.device)
+    out[:kept.numel()] = kept
+    return out, nbytes
+
+
+def compact_segments(seg_words: torch.Tensor, seg_bits: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segment streams [n_seg, W] int32 (u32 bit patterns, the last byte
+    1-padded) and seg_bits [n_seg] (at most 32 W each) -> (u8 buffer
+    [4 n_seg W], nbytes [n_seg] int64): each segment trimmed to
+    ceil(bits / 8) bytes and the segments joined back to back in stream
+    byte order, with no stuffing and no markers. The stream is the
+    buffer's first ``sum(nbytes)`` bytes; bytes past it are unspecified.
+    Launches ``csrc/compact.cu`` on CUDA tensors, one thread block per
+    (segment, 4 KB chunk)."""
+    if seg_words.device.type == "cpu":
+        return compact_segments_plain(seg_words, seg_bits)
+    n_seg, w = seg_words.shape
+    seg_words = seg_words.to(torch.int32).contiguous()
+    nbytes, off = compact_offsets(seg_bits)
+    _build.check_cuda(seg_words, nbytes, off)
+    out = torch.empty(4 * n_seg * w, dtype=torch.uint8,
+                      device=seg_words.device)
+    COMPACT.launch(seg_words.data_ptr(), nbytes.data_ptr(), off.data_ptr(),
+                   out.data_ptr(), n_seg, w, -(-w // CHUNK_WORDS))
+    return out, nbytes

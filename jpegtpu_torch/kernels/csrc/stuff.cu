@@ -1,7 +1,9 @@
 // Stuffing kernel: segment bitstreams -> the finished entropy-coded scan.
 // Each segment is trimmed to its byte count, every 0xFF byte is followed by
-// a stuffed 0x00, and RST marker 0xFF, 0xD0 + s % 8 follows every segment
-// but the last (ITU-T T.81 B.1.1.5, B.2.1.2).
+// a stuffed 0x00, and the RST marker 0xFF, mnum[s] follows segment s where
+// mnum[s] != 0 (ITU-T T.81 B.1.1.5, B.2.1.2). The glue's marker table
+// numbers the markers within each image and leaves none after an image's
+// last segment, so a batch of images is one scan of whole image scans.
 //
 // Replaces jpegtpu/kernels/compact.py:_compact_stuff_kernel_gkb (called
 // from compact_segments_stuffed_grouped) and computes what its single-chain
@@ -26,8 +28,9 @@ constexpr int kWarps = kThreads / 32;
 __global__ void __launch_bounds__(kThreads)
 stuff_kernel(const int32_t* __restrict__ seg_words,
              const int32_t* __restrict__ nbytes,
-             const int64_t* __restrict__ seg_start, uint8_t* __restrict__ out,
-             long long n_seg, long long seg_stride, int markers) {
+             const int64_t* __restrict__ seg_start,
+             const int32_t* __restrict__ mnum, uint8_t* __restrict__ out,
+             long long seg_stride) {
   __shared__ int warp_tot[kWarps];
   __shared__ long long carry_s;
   const long long seg = blockIdx.x;
@@ -80,10 +83,10 @@ stuff_kernel(const int32_t* __restrict__ seg_words,
     if (tid == 0) carry_s = carry + tile;
     __syncthreads();
   }
-  if (tid == 0 && markers && seg + 1 < n_seg) {
+  if (tid == 0 && mnum[seg] != 0) {
     const long long p = start + nb + carry_s;
     out[p] = 0xFF;
-    out[p + 1] = (uint8_t)(0xD0 + (seg & 7));
+    out[p + 1] = (uint8_t)mnum[seg];
   }
 }
 
@@ -91,11 +94,13 @@ stuff_kernel(const int32_t* __restrict__ seg_words,
 
 extern "C" int jt_stuff_segments(const int32_t* seg_words,
                                  const int32_t* nbytes,
-                                 const int64_t* seg_start, uint8_t* out,
+                                 const int64_t* seg_start,
+                                 const int32_t* mnum, uint8_t* out,
                                  long long n_seg, long long seg_stride,
-                                 int markers, cudaStream_t stream) {
+                                 cudaStream_t stream) {
   if (n_seg <= 0) return 0;
+  if (n_seg > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   stuff_kernel<<<(unsigned)n_seg, kThreads, 0, stream>>>(
-      seg_words, nbytes, seg_start, out, n_seg, seg_stride, markers);
+      seg_words, nbytes, seg_start, mnum, out, seg_stride);
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,8 @@ for 4:4:4 and 4:4:4s (whose operator folds the 2x2 chroma smoothing in).
 514-531``): the fused product for 4:2:0, 4:2:2, 4:4:4 and 8-aligned 4:4:4s,
 the staged ops of ``jpegtpu_torch.core.ops`` for gray and for 4:4:4s of
 another size (smoothing comes before padding there, which no per-MCU
-operator expresses). ``encode_blocks_pairs`` is the fused product: on a
+operator expresses); ``encode_blocks_batch`` codes a batch of images in
+one call. ``encode_blocks_pairs`` is the fused product: on a
 CUDA tensor it launches the hand-written kernel ``csrc/pixel.cu`` (the
 port of ``_pixel_kernel_nat``); on a CPU tensor it runs the plain twin
 ``encode_blocks_pairs_plain``.
@@ -178,9 +179,25 @@ def encode_blocks(img: torch.Tensor, tables, subsampling: str) -> torch.Tensor:
     """u8 [H, W, 3] (gray: [H, W]) -> int32 [nMCU, B*64] coefficients in
     scan order, by the fused product where jpegtpu takes it and by the
     staged ops elsewhere. ``tables`` is an ``EncoderTables`` of this mode."""
-    h, w = img.shape[0], img.shape[1]
+    return encode_blocks_batch(img[None], tables, subsampling)
+
+
+def encode_blocks_batch(imgs: torch.Tensor, tables,
+                        subsampling: str) -> torch.Tensor:
+    """u8 [n, H, W, 3] (gray: [n, H, W]) -> int32 [n * nMCU, B*64]: image
+    i's MCUs in rows [i * nMCU, (i + 1) * nMCU), each image as
+    ``encode_blocks`` codes it. For the fused product each image is padded
+    to whole MCUs and the batch is viewed as one image [n * Hp, Wp, 3],
+    whose MCUs in raster order are image 0's, then image 1's, and so on: one
+    launch of the pixel kernel for the batch. The staged ops take the batch
+    axis as it is."""
+    h, w = imgs.shape[1], imgs.shape[2]
     if uses_fused(h, w, subsampling):
-        return encode_blocks_pairs(img, tables.m, tables.bias, subsampling)
-    c = ops.encode_blocks(img, tables.block_m, tables.block_bias,
+        padded = ops.pad_to_multiple(imgs, ops.mcu_shape(subsampling))
+        return encode_blocks_pairs(padded.reshape(-1, *padded.shape[2:]),
+                                   tables.m, tables.bias, subsampling)
+    if subsampling == "gray":
+        imgs = imgs[..., None]          # [n, H, W, 1]: never read as RGB
+    c = ops.encode_blocks(imgs, tables.block_m, tables.block_bias,
                           subsampling)
-    return c.reshape(c.shape[0], -1)
+    return c.reshape(-1, c.shape[-2] * 64)

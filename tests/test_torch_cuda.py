@@ -20,7 +20,7 @@ from jpegtpu_torch.kernels import compact, entropy_pack, fused_dctq
 pytestmark = pytest.mark.gpu
 
 KERNELS = (fused_dctq.PIXEL, entropy_pack.BLOCK_PACK, entropy_pack.SEG_MERGE,
-           compact.STUFF, compact.STUFF_CHUNKS)
+           compact.STUFF, compact.STUFF_CHUNKS, compact.COMPACT)
 MODES = ("420", "422", "444", "444s", "gray")
 
 
@@ -67,7 +67,7 @@ def test_encode_on_gpu_equals_cpu_path(dev, name, q):
     got, launches = _launches(img, quality=q, subsampling="420")
     # One MCU row is one segment, which the chunk kernel stuffs.
     one_seg = -(-img.shape[0] // 16) == 1
-    assert launches == [1, 1, 1, int(not one_seg), int(one_seg)]
+    assert launches == [1, 1, 1, int(not one_seg), int(one_seg), 0]
     want = jpegtpu_torch.encode(img, quality=q, subsampling="420",
                                 device="cpu")
     assert got == want
@@ -91,7 +91,42 @@ def test_modes_on_gpu_equal_cpu_path(dev, name, mode, restart):
     n_mcu = -(-h // my) * -(-w // mx)
     r = -(-w // mx) if restart == "rows" else restart
     one_seg = r == 0 or r >= n_mcu
-    assert launches == [int(fused), 1, 1, int(not one_seg), int(one_seg)]
+    assert launches == [int(fused), 1, 1, int(not one_seg), int(one_seg), 0]
+
+
+@pytest.mark.parametrize("restart", ["rows", 0, 5])
+@pytest.mark.parametrize("mode", MODES)
+def test_encode_without_device_stuff_on_gpu_equals_cpu_path(dev, mode,
+                                                            restart):
+    """device_stuff=False: the compaction kernel, then the host stuffing,
+    for several segments, one, and a ragged last one."""
+    img = IMAGES["odd_37x53"]()
+    if mode == "gray":
+        img = np.ascontiguousarray(img[..., 1])
+    kw = dict(quality=75, subsampling=mode, restart_interval=restart)
+    got, launches = _launches(img, device_stuff=False, **kw)
+    assert got == jpegtpu_torch.encode(img, device="cpu", **kw)
+    fused = fused_dctq.uses_fused(*img.shape[:2], mode)
+    assert launches == [int(fused), 1, 1, 0, 0, 1]
+
+
+@pytest.mark.parametrize("device_stuff", [True, False])
+@pytest.mark.parametrize("mode", MODES)
+def test_encode_batch_on_gpu_equals_cpu_path(dev, mode, device_stuff):
+    """One program for the batch: each kernel launched once, RST numbers
+    restarting in each image, the files of the CPU path."""
+    imgs = [_random(37, 53, s) for s in (11, 22, 23)]
+    if mode == "gray":
+        imgs = [np.ascontiguousarray(im[..., 0]) for im in imgs]
+    kw = dict(quality=90, subsampling=mode, device_stuff=device_stuff)
+    for k in KERNELS:
+        k.launches = 0
+    got = jpegtpu_torch.encode_batch(imgs, device=dev, **kw)
+    launches = [k.launches for k in KERNELS]
+    fused = fused_dctq.uses_fused(37, 53, mode)
+    assert launches == [int(fused), 1, 1, int(device_stuff), 0,
+                        int(not device_stuff)]
+    assert got == jpegtpu_torch.encode_batch(imgs, device="cpu", **kw)
 
 
 def _coeffs(kind, n_mcu, seed):
@@ -150,9 +185,9 @@ def test_entropy_kernels_match_twins(dev, kind, n_seg, mps):
     for restart in (mps, 0):
         for fn in (compact.compact_segments_stuffed_grouped,
                    compact.compact_segments_stuffed):
-            buf, total = fn(sw, sb, restart)
+            buf, total = fn(sw, sb, restart)[:2]
             buf_p, total_p = getattr(compact, fn.__name__ + "_plain")(
-                sw, sb, restart)
+                sw, sb, restart)[:2]
             assert int(total) == int(total_p)
             assert torch.equal(buf[:int(total)], buf_p[:int(total)])
 
@@ -165,8 +200,8 @@ def test_stuffing_kernel_all_ff_segments(dev, fn):
     n_seg, w = 3, 2700
     words = torch.full((n_seg, w), -1, dtype=torch.int32, device=dev)
     bits = torch.tensor([w * 32, 8 * 4099 - 3, 8 * 5], device=dev)
-    buf, total = getattr(compact, fn)(words, bits, 1)
-    buf_p, total_p = getattr(compact, fn + "_plain")(words, bits, 1)
+    buf, total = getattr(compact, fn)(words, bits, 1)[:2]
+    buf_p, total_p = getattr(compact, fn + "_plain")(words, bits, 1)[:2]
     want = 2 * (w * 4 + 4099 + 5) + 2 * (n_seg - 1)
     assert int(total) == int(total_p) == want
     assert torch.equal(buf[:want], buf_p[:want])
@@ -209,6 +244,48 @@ def test_chunk_stuffing_kernel_matches_twin(dev, case):
     buf_p, total_p = compact.compact_segments_stuffed_plain(words, bits, 1,
                                                             mnum)
     assert int(total) == int(total_p)
+    assert torch.equal(buf[:int(total)], buf_p[:int(total)])
+
+
+@pytest.mark.parametrize("case", ["empty_segments", "chunk_boundary",
+                                  "many_chunks", "one_byte_segments"])
+def test_compact_kernel_matches_twin(dev, case):
+    """The compaction kernel against its twin: segments of 0 bytes among
+    others; segments that end exactly on a 4 KB chunk boundary (and one
+    byte short of it); one segment of many chunks ending inside a word;
+    32,768 one-byte segments (every offset unaligned)."""
+    rng = np.random.default_rng(5)
+    if case == "empty_segments":
+        w, bits = 300, [0, 8 * 7 + 3, 0, 0, 8 * 1200]
+    elif case == "chunk_boundary":
+        w, bits = 2 * 1024 + 5, [8 * 4096, 8 * 8192, 8 * 4095]
+    elif case == "many_chunks":
+        w, bits = 9 * 1024 + 300, [8 * (9 * 4096 + 1000) - 5]
+    else:
+        w, bits = 2, rng.integers(1, 9, 32768).tolist()
+    words = _segments(len(bits), w, 3, ff_share=0.1)
+    bits = torch.tensor(bits, device=dev)
+    buf, nbytes = compact.compact_segments(words, bits)
+    buf_p, nbytes_p = compact.compact_segments_plain(words, bits)
+    total = int(nbytes.sum())
+    assert torch.equal(nbytes, nbytes_p)
+    assert torch.equal(buf[:total], buf_p[:total])
+
+
+@pytest.mark.parametrize("spi", [1, 3, 12])
+def test_stuffing_kernel_per_image_markers(dev, spi):
+    """The per-segment stuffing kernel with a marker table numbered within
+    each image of spi segments, and each image's first byte."""
+    n_seg, w = 24, 700
+    words = _segments(n_seg, w, 4, ff_share=0.2)
+    bits = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 32 * w, n_seg)).to(dev)
+    buf, total, off = compact.compact_segments_stuffed_grouped(words, bits,
+                                                               1, spi)
+    buf_p, total_p, off_p = compact.compact_segments_stuffed_grouped_plain(
+        words, bits, 1, spi)
+    assert int(total) == int(total_p) and torch.equal(off, off_p)
+    assert off.shape == (n_seg // spi,)
     assert torch.equal(buf[:int(total)], buf_p[:int(total)])
 
 

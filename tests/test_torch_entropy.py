@@ -25,6 +25,14 @@ LUTS = tuple(torch.from_numpy(a.astype(np.int32)) for a in ht.packed_luts())
 _dc_diffs = jax.jit(scan.dc_diffs_from_dc, static_argnums=(1, 2))
 _block_symbols = jax.jit(scan.block_symbols)
 _pack_words = jax.jit(assemble.pack_words, static_argnums=(2, 3))
+# jpegtpu's block pack and segment merge, jitted as test_torch_batch.py
+# and test_torch_restart.py jit them: their batch program and ragged
+# fixture call them on pallas_ref's shapes, so in one process they share
+# the interpret-mode compiles, the costly part of such a run.
+_block_pack = jax.jit(entropy_pack.block_pack_mcu_pairs,
+                      static_argnums=(3, 4),
+                      static_argnames=("n_luma", "merge_rot"))
+_seg_merge = jax.jit(entropy_pack.seg_merge_mcu, static_argnums=(2, 3, 4))
 
 
 @jax.jit
@@ -107,21 +115,22 @@ def _port_mcu_streams(coeffs, cls, dcd):
 def pallas_ref():
     """jpegtpu's main-path entropy kernels in interpret mode at 64x128 (4
     segments of 8 MCUs), as the encoder calls them, except that the
-    stuffing runs 2 chains of 2 segments (the encoder's min(8, n_seg)
-    chains would be 4 of 1; interpret time grows with the chain count,
-    and 2 of 2 also splices a marker inside a chain)."""
+    stuffing runs 2 chains of 2 segments and one 4 KB chunk a step (the
+    encoder's min(8, n_seg) chains would be 4 of 1 and its kb 3 chunks a
+    step; interpret time grows with both, they change no byte, and 2
+    chains of 2 also splice a marker inside a chain)."""
     coeffs = _image_coeffs(64, 128, 90, 1)
     restart, n_seg = 8, 4
     dcd, cls = _dc_and_cls(coeffs, restart)
     chunks, _ = entropy_pack.mcu_capacity(6, 384)
-    mw, ml = entropy_pack.block_pack_mcu_pairs(
-        jnp.asarray(coeffs), jnp.asarray(cls), jnp.asarray(dcd), 6, chunks,
-        n_luma=4)
+    mw, ml = _block_pack(jnp.asarray(coeffs), jnp.asarray(cls),
+                         jnp.asarray(dcd), 6, chunks, n_luma=4,
+                         merge_rot=False)
     w_cap = -(-restart * 6 * 384 // 32)
-    sw, sb, _ = entropy_pack.seg_merge_mcu(mw, ml, n_seg, restart, w_cap)
+    sw, sb, _ = _seg_merge(mw, ml, n_seg, restart, w_cap)
     frames = sw.shape[1] // 1024
     st2, glens, _, total = compact.compact_segments_stuffed_grouped(
-        sw, sb, frames, restart, 2, k_chunks=3)
+        sw, sb, frames, restart, 2, k_chunks=1)
     glens = np.asarray(glens)
     scan_bytes = b"".join(np.asarray(st2[g]).view(np.uint8)[:glens[g]]
                           .tobytes() for g in range(len(glens)))
@@ -205,8 +214,9 @@ def test_scan_matches_grouped_compaction(pallas_ref):
     """Fed jpegtpu's segments: the bytes of the stitched grouped stuffing
     kernel's output."""
     r = pallas_ref
-    buf, total = t_compact.compact_segments_stuffed_grouped(
+    buf, total, img_off = t_compact.compact_segments_stuffed_grouped(
         _u32_to_t(r["sw"]), torch.from_numpy(r["sb"]), r["restart"])
+    assert img_off.tolist() == [0]
     assert int(total) == len(r["scan"])
     assert buf[:int(total)].numpy().tobytes() == r["scan"]
 
@@ -222,17 +232,24 @@ def test_scan_matches_oracle_assembly(case):
     dcd, cls = _dc_and_cls(coeffs, restart)
     mw, ml = _port_mcu_streams(coeffs, cls, dcd)
     sw, sb = t_entropy_pack.seg_merge_mcu(mw, ml, n_seg, restart)
-    buf, total = t_compact.compact_segments_stuffed_grouped(sw, sb, restart)
+    buf, total, _ = t_compact.compact_segments_stuffed_grouped(sw, sb,
+                                                               restart)
     assert buf[:int(total)].numpy().tobytes() == want
     assert want.count(b"\xff\xd0") >= 1
 
 
 def test_stuff_precompute_counts():
     """0xFF bytes past a segment's byte count are not counted; the last
-    segment gets no marker."""
+    segment gets no marker; each image starts at its first segment."""
     words = torch.tensor([[-1, -1], [0x00FF00FF, -1]], dtype=torch.int32)
     bits = torch.tensor([36, 17])
-    nbytes, ffc, start, total = t_compact.stuff_precompute(words, bits, 1)
+    nbytes, ffc, start, img_off, total = t_compact.stuff_precompute(
+        words, bits, t_compact.marker_table(2, 1))
     assert nbytes.tolist() == [5, 3]
     assert ffc.tolist() == [5, 1]
     assert start.tolist() == [0, 12] and int(total) == 16
+    assert img_off.tolist() == [0]
+    # Two one-segment images: no marker between them.
+    _, _, start, img_off, total = t_compact.stuff_precompute(
+        words, bits, t_compact.marker_table(2, 1, 1), 1)
+    assert start.tolist() == img_off.tolist() == [0, 10] and int(total) == 14

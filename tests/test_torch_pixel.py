@@ -13,10 +13,12 @@ from jpegtpu_torch.core import ops as t_ops
 from jpegtpu_torch.encoder import EncoderTables
 from jpegtpu_torch.kernels import fused_dctq as t_fused_dctq
 
-# jpegtpu's pixel paths, each compiled once per shape.
+# jpegtpu's pixel paths, each compiled once per shape. The Pallas one is
+# jitted as test_torch_batch.py's batch program jits it, which calls it on
+# the same batch: in one process the two share its interpret-mode compile.
 _xla_pairs = jax.jit(fused_dctq.encode_blocks_pairs, static_argnums=(1, 2))
 _pallas_pairs = jax.jit(fused_dctq.encode_blocks_pallas_nat_pairs,
-                        static_argnums=(1, 2))
+                        static_argnums=(1, 2), static_argnames=("with_dc",))
 
 
 def _random(h, w, seed):
@@ -47,10 +49,18 @@ def test_pixel_twin_matches_jpegtpu_exactly(image, q):
 
 
 def test_pixel_twin_matches_pallas_kernel_interpret():
-    """The TPU pixel kernel itself (_pixel_kernel_nat, interpret mode)."""
+    """The TPU pixel kernel itself (_pixel_kernel_nat, interpret mode) on a
+    64x128 image given as a batch of its two MCU-row halves, whose MCUs in
+    order are the image's: the port's twin of the whole image and its
+    batch pixel path both give the kernel's coefficients."""
     img = _random(64, 128, 3)
-    want = np.asarray(_pallas_pairs(jnp.asarray(img), 90, "420"))
+    halves = np.stack([img[:32], img[32:]])
+    want = np.asarray(_pallas_pairs(jnp.asarray(halves), 90, "420",
+                                    with_dc=False)).reshape(-1, 384)
     np.testing.assert_array_equal(_twin(img, 90), want)
+    got = t_fused_dctq.encode_blocks_batch(
+        torch.from_numpy(halves), EncoderTables.for_quality(90), "420")
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("shape", [(37, 53), (16, 16), (5, 7), (16, 3),

@@ -25,6 +25,12 @@ from jpegtpu_torch.kernels import entropy_pack as t_entropy_pack
 _stuff_precompute = jax.jit(compact._stuff_precompute, static_argnums=(2,))
 _block_symbols = jax.jit(scan.block_symbols)
 _pack_words = jax.jit(assemble.pack_words, static_argnums=(2, 3))
+# jpegtpu's segment merge in interpret mode, on the shapes that
+# test_torch_entropy.py's pallas_ref and test_torch_batch.py's batch
+# program give it (4 segments of 8 MCUs of one 128-word chunk, 576 words a
+# segment): in one process they share its compile, the costly part of an
+# interpret-mode run.
+_seg_merge = jax.jit(entropy_pack.seg_merge_mcu, static_argnums=(2, 3, 4))
 
 
 def _random(h, w, seed):
@@ -123,16 +129,17 @@ def test_marker_table():
 
 @pytest.fixture(scope="module")
 def k5_ref():
-    """jpegtpu's single-chain stuffing kernel (_compact_stuff_kernel_kb,
-    k_chunks=3 as the encoder calls it) in interpret mode, on one segment
-    of 4 chunks with 0xFF bytes at chunk edges and a byte count that ends
-    inside a word."""
+    """jpegtpu's single-chain stuffing kernel in interpret mode, one chunk a
+    step (_compact_stuff_kernel, compact.py:317; the encoder's 3 chunks a
+    step, _compact_stuff_kernel_kb, give the same bytes and take twice the
+    interpret time), on one segment of 4 chunks with 0xFF bytes at chunk
+    edges and a byte count that ends inside a word."""
     words = _words(1, 5, 7)
     for i in (4095, 2 * 4096 - 1, 3 * 4096):
         _set_stream_byte(words, 0, i, 0xFF)
     bits = np.array([8 * (3 * 4096 + 1234) - 3], np.int32)
     stream, _, total = compact.compact_segments_stuffed(
-        jnp.asarray(words), jnp.asarray(bits), 5, 0, k_chunks=3)
+        jnp.asarray(words), jnp.asarray(bits), 5, 0, k_chunks=1)
     scan_bytes = np.asarray(stream).view(np.uint8)[:int(total)].tobytes()
     return words, bits, scan_bytes
 
@@ -154,7 +161,7 @@ def test_chunk_twin_matches_segment_twin(name, restart):
     words, bits, _ = _chunk_case(name)
     a, ta = t_compact.compact_segments_stuffed_plain(
         _to_t(words), torch.from_numpy(bits), restart)
-    b, tb = t_compact.compact_segments_stuffed_grouped_plain(
+    b, tb, _ = t_compact.compact_segments_stuffed_grouped_plain(
         _to_t(words), torch.from_numpy(bits), restart)
     assert int(ta) == int(tb)
     assert torch.equal(a[:int(ta)], b[:int(tb)])
@@ -162,27 +169,31 @@ def test_chunk_twin_matches_segment_twin(name, restart):
 
 @pytest.fixture(scope="module")
 def ragged_ref():
-    """jpegtpu's own ragged path (encoder.py:266-275): MCU streams of a
-    37x53 4:2:0 image (12 MCUs) in segments of 5, with 3 zero-length pad
-    MCUs appended, merged by jpegtpu's seg_merge_mcu in interpret mode."""
-    img = _random(37, 53, 11)
+    """jpegtpu's own ragged path (encoder.py:266-275): MCU streams of an
+    80x80 4:2:0 image (25 MCUs) in segments of 8, with 7 zero-length pad
+    MCUs appended, merged by jpegtpu's seg_merge_mcu in interpret mode
+    (with the encoder's first-pass segment width for 8 MCUs, 576 words)."""
+    img = _random(80, 80, 11)
     coeffs = np.asarray(fused_dctq.encode_blocks_pairs(jnp.asarray(img), 90,
                                                        "420"))
-    n_mcu, restart = coeffs.shape[0], 5
+    n_mcu, restart = coeffs.shape[0], 8
     n_seg, mps = -(-n_mcu // restart), restart
     dcd = np.asarray(scan.dc_diffs_from_dc(jnp.asarray(coeffs[:, ::64]), 4,
                                            restart)).reshape(-1)
     cls = (np.arange(n_mcu * 6) % 6 >= 4).astype(np.int32)
     lens, sym = _block_symbols(coeffs.reshape(-1, 64), cls, dcd)
     words, mlens = _pack_words(lens, sym, n_mcu, 6)
-    chunks = -(-words.shape[1] // 128)
+    # As few 128-word chunks as the longest MCU needs (jpegtpu's
+    # interpret time grows with the width).
+    chunks = -(-int(np.max(mlens)) // (32 * 128))
     mw = np.zeros((n_seg * mps, chunks * 128), np.uint32)
-    mw[:n_mcu, :words.shape[1]] = np.asarray(words)
+    mw[:n_mcu] = np.asarray(words)[:, :chunks * 128]
     ml = np.zeros(n_seg * mps, np.int32)
     ml[:n_mcu] = np.asarray(mlens)
-    w_cap = -(-mps * 6 * assemble.MAX_BITS_PER_BLOCK // 32)
-    sw, sb, _ = entropy_pack.seg_merge_mcu(jnp.asarray(mw), jnp.asarray(ml),
-                                           n_seg, mps, w_cap)
+    w_cap = -(-mps * 6 * 384 // 32)
+    sw, sb, _ = _seg_merge(jnp.asarray(mw), jnp.asarray(ml), n_seg, mps,
+                           w_cap)
+    assert int(np.max(np.asarray(sb))) < 32 * (w_cap - 1), "no overflow"
     return dict(mw=mw[:n_mcu], ml=ml[:n_mcu], n_seg=n_seg, mps=mps,
                 sw=np.asarray(sw), sb=np.asarray(sb))
 
