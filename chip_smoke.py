@@ -1,12 +1,15 @@
-"""GPU smoke test of jpegtpu_torch: build the six CUDA kernels, hold each
+"""GPU smoke test of jpegtpu_torch: build the ten CUDA kernels, hold each
 against its plain torch twin on the card at 3840x2160, drive every encode
 path (``jpegtpu_torch.encode``: 4:2:0 with a restart marker every MCU row,
 the main path; 4:2:0 with no restart markers, with a ragged interval and
 with a marker after every MCU; 4:2:2, 4:4:4 (also with a marker after every
 MCU), 4:4:4s and gray; 4:2:0 rows and restart 0 stuffed on the host,
-``device_stuff=False``; ``jpegtpu_torch.encode_batch`` of 8 x 1920x1080
-with ``device_stuff`` on and off) and check its bytes, then time
-everything.
+``device_stuff=False``; the pixel-path selectors: ``fuse_bp`` at 4:2:0
+rows and restart 0, 4:2:2 and 4:4:4, ``pixel_path`` "dma" and "xla" and
+``JPEGTPU_PIXEL_DC``'s route at 4:2:0 rows; the i8-view pixel kernel
+through its entry point; ``jpegtpu_torch.encode_batch`` of 8 x 1920x1080
+with ``device_stuff`` on and off and with ``fuse_bp``) and check its
+bytes, then time everything.
 
     python3 chip_smoke.py
 
@@ -59,10 +62,22 @@ PATHS = (("420", "rows"), ("420", 0), ("420", 7), ("420", 1),
          ("gray", "rows"))
 # The 3840x2160 paths stuffed on the host (device_stuff=False).
 HOST_STUFF_PATHS = (("420", "rows"), ("420", 0))
+# The 3840x2160 paths of the pixel-path selectors: (subsampling,
+# restart_interval, EncoderConfig fields; "pixel_dc" sets
+# fused_dctq.PIXEL_DC, JPEGTPU_PIXEL_DC's flag, for the path).
+SELECTOR_PATHS = (("420", "rows", {"fuse_bp": True}),
+                  ("420", 0, {"fuse_bp": True}),
+                  ("422", "rows", {"fuse_bp": True}),
+                  ("444", "rows", {"fuse_bp": True}),
+                  ("420", "rows", {"pixel_path": "dma"}),
+                  ("420", "rows", {"pixel_path": "xla"}),
+                  ("420", "rows", {"pixel_dc": True}))
 BATCH = 8                  # images of GOLDEN_SHAPE in the batch paths
-# The paths whose device time the profiler splits by kernel.
-PROFILED = (("420", "rows"), ("420", 0), ("420", 7), ("420", 1),
-            ("444", 1))
+# The paths whose device time the profiler splits by kernel (with their
+# selectors).
+PROFILED = (("420", "rows", {}), ("420", 0, {}), ("420", 7, {}),
+            ("420", 1, {}), ("444", 1, {}), ("420", "rows", {"fuse_bp": True}),
+            ("420", "rows", {"pixel_path": "dma"}))
 TIMING_REPS = 20
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float64 FLOP/s (the tensor-core rate, the card's highest for float64).
@@ -238,9 +253,10 @@ def profile_device_encode(fn, wall_ms: float, card: str, reps: int = 5,
     print(f"[profile] host enqueue {enqueue_ms:.4f} ms per encode (no sync)")
 
 
-def kernel_device_ms(fn, key: str, reps: int = 5) -> float | str:
-    """Device time of the kernels whose name holds `key`, per call of fn
-    (torch.profiler), or "not measured" when no such kernel was traced."""
+def kernel_device_ms(fn, *keys: str, reps: int = 5) -> float | str:
+    """Device time of the kernels whose name holds every one of `keys`, per
+    call of fn (torch.profiler), or "not measured" when no such kernel was
+    traced."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -249,7 +265,7 @@ def kernel_device_ms(fn, key: str, reps: int = 5) -> float | str:
             fn()
         torch.cuda.synchronize()
     us = [e.self_device_time_total for e in prof.key_averages()
-          if key in e.key]
+          if all(k in e.key for k in keys)]
     return sum(us) / reps / 1e3 if us else "not measured"
 
 
@@ -267,7 +283,8 @@ def main() -> int:
     from jpegtpu_torch.encoder import (EncoderTables, device_encode,
                                        device_encode_batch, geometry)
     from jpegtpu_torch.entropy import scan
-    from jpegtpu_torch.kernels import _build, compact, entropy_pack, fused_dctq
+    from jpegtpu_torch.kernels import (_build, compact, entropy_pack,
+                                       fused_dctq, fused_pipeline)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -322,6 +339,28 @@ def main() -> int:
         n_by, e_by = diff(buf_[:tot_], buf_p_[:tot_])
         return int(tot_ != tot_p_) + n_by, max(e_by, abs(tot_ - tot_p_)), tot_
 
+    def stream_diff(w_, l_, w_p, l_p):
+        """MCU streams against their twin's: the lengths, and the stream
+        bits only (bit i of word j is kept while 32j+i < the length)."""
+        j = torch.arange(w_.shape[1], device=dev)[None, :]
+        valid = torch.clamp(l_.to(torch.int64)[:, None] - 32 * j, 0, 32)
+        word_mask = (0xFFFFFFFF << (32 - valid)) & 0xFFFFFFFF
+        n_len, e_len = diff(l_, l_p)
+        n_w, e_w = diff((w_.to(torch.int64) & 0xFFFFFFFF) & word_mask,
+                        (w_p.to(torch.int64) & 0xFFFFFFFF) & word_mask)
+        return n_len + n_w, max(e_len, e_w)
+
+    def run_path(kw, fn):
+        """fn(fields): the EncoderConfig fields of a path's selectors, with
+        fused_dctq.PIXEL_DC (JPEGTPU_PIXEL_DC's flag) set for the call
+        when kw holds "pixel_dc", and restored after."""
+        old = fused_dctq.PIXEL_DC
+        fused_dctq.PIXEL_DC = bool(kw.get("pixel_dc"))
+        try:
+            return fn({k: v for k, v in kw.items() if k != "pixel_dc"})
+        finally:
+            fused_dctq.PIXEL_DC = old
+
     def compact_diff(sw_, sb_):
         """K6 against its twin: the byte counts, and the first sum(nbytes)
         bytes of the stream."""
@@ -365,17 +404,10 @@ def main() -> int:
     mw, ml = entropy_pack.block_pack_mcu_pairs(coeffs, cls, dcd, *luts)
     mw_p, ml_p = entropy_pack.block_pack_mcu_pairs_plain(coeffs, cls, dcd,
                                                          *luts)
-    # Compare the stream bits only: bit i of word j is kept while 32j+i < ml.
-    j = torch.arange(mw.shape[1], device=dev)[None, :]
-    valid = torch.clamp(ml.to(torch.int64)[:, None] - 32 * j, 0, 32)
-    word_mask = (0xFFFFFFFF << (32 - valid)) & 0xFFFFFFFF
-    n_len, e_len = diff(ml, ml_p)
-    n_w, e_w = diff((mw.to(torch.int64) & 0xFFFFFFFF) & word_mask,
-                    (mw_p.to(torch.int64) & 0xFFFFFFFF) & word_mask)
-    errs["block_pack"] = max(e_len, e_w)
+    n_bad, errs["block_pack"] = stream_diff(mw, ml, mw_p, ml_p)
     report(f"K2 block pack mlens {tuple(ml.shape)} + masked words "
-           f"{tuple(mw.shape)}", n_len + n_w, errs["block_pack"])
-    del mw_p, ml_p, valid, word_mask
+           f"{tuple(mw.shape)}", n_bad, errs["block_pack"])
+    del mw_p, ml_p
 
     sw, sb = entropy_pack.seg_merge_mcu(mw, ml, n_seg, restart)
     sw_p, sb_p = entropy_pack.seg_merge_mcu_plain(mw, ml, n_seg, restart)
@@ -448,6 +480,53 @@ def main() -> int:
            f"segments, total {total_b} bytes, image offsets", n_bad + n_off,
            max(e, e_off))
 
+    # K11-K14, the kernels of the pixel-path selectors. K11 at 420 rows,
+    # restart 0 (every block takes its first DC predictor from its halo
+    # MCU) and 7 (resets inside thread blocks), 422 rows and 444 rows (odd
+    # g): lengths and stream bits as K2's, and the whole words (both are
+    # zero past each length).
+    fused_cases = {"420 rows": ("420", restart), "420 restart 0": ("420", 0),
+                   "420 restart 7": ("420", 7),
+                   "422 rows": ("422", ops.mcu_grid(h, w, "422")[1]),
+                   "444 rows": ("444", ops.mcu_grid(h, w, "444")[1])}
+    errs["fused_px_bp"] = 0
+    for label, (sub, r) in fused_cases.items():
+        fw, fl = fused_pipeline.fused_pixel_block_pack_pairs(x, tabs[sub],
+                                                             sub, r)
+        fw_p, fl_p = fused_pipeline.fused_pixel_block_pack_pairs_plain(
+            x, tabs[sub], sub, r)
+        n_bad, e = stream_diff(fw, fl, fw_p, fl_p)
+        n_whole = int((fw != fw_p).sum())
+        errs["fused_px_bp"] = max(errs["fused_px_bp"], e)
+        report(f"K11 fused pixel + block pack {label}: mlens "
+               f"{tuple(fl.shape)} + masked words {tuple(fw.shape)}; "
+               f"{n_whole} whole words differ", n_bad + n_whole, e)
+        del fw, fl, fw_p, fl_p
+    errs["pixel_dc"] = 0
+    for sub in ("420", "422", "444"):
+        t = tabs[sub]
+        c_k, dc_k = fused_dctq.encode_blocks_pairs(x, t.m, t.bias, sub,
+                                                   with_dc=True)
+        c_p = fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias, sub)
+        n_c, e_c = diff(c_k, c_p)
+        n_d, e_d = diff(dc_k, fused_dctq.dc_plane(c_p))
+        errs["pixel_dc"] = max(errs["pixel_dc"], e_c, e_d)
+        report(f"K12 pixel + DC plane {sub}: coefficients "
+               f"{tuple(c_k.shape)} + plane {tuple(dc_k.shape)}", n_c + n_d,
+               max(e_c, e_d))
+        del c_k, dc_k, c_p
+    x8 = fused_dctq.i8_view(x)
+    n_bad, errs["pixel_i8"] = diff(
+        fused_dctq.encode_blocks_i8_pairs(x, tables.m, tables.bias),
+        fused_dctq.pixel_i8_plain(x8, tables.m, tables.bias))
+    report(f"K13 i8-view pixel 420 coefficients from the view "
+           f"{tuple(x8.shape)}", n_bad, errs["pixel_i8"])
+    n_bad, errs["pixel_dma"] = diff(
+        fused_dctq.encode_blocks_dma_pairs(x, tables.m, tables.bias),
+        coeffs_p)
+    report(f"K14 async-copy pixel 420 coefficients {tuple(coeffs_p.shape)}",
+           n_bad, errs["pixel_dma"])
+
     # 4. Every path end to end, through the public entry point, each with
     # the launch counts set to 0 just before it and read just after.
     kernels = (("pixel", fused_dctq.PIXEL, "pixel.cu",
@@ -461,11 +540,39 @@ def main() -> int:
                ("stuff_chunks", compact.STUFF_CHUNKS, "stuff_chunks.cu",
                 "jpegtpu/kernels/compact.py:317"),
                ("compact", compact.COMPACT, "compact.cu",
-                "jpegtpu/kernels/compact.py:44"))
+                "jpegtpu/kernels/compact.py:44"),
+               ("fused_px_bp", fused_pipeline.FUSED_PX_BP, "fused_px_bp.cu",
+                "jpegtpu/kernels/fused_pipeline.py:57"),
+               ("pixel_dc", fused_dctq.PIXEL_DC_PLANE, "pixel.cu",
+                "jpegtpu/kernels/fused_dctq.py:358"),
+               ("pixel_i8", fused_dctq.PIXEL_I8, "pixel.cu",
+                "jpegtpu/kernels/fused_dctq.py:128"),
+               ("pixel_dma", fused_dctq.PIXEL_DMA, "pixel_dma.cu",
+                "jpegtpu/kernels/fused_dctq.py:246"))
     launches = {n: 0 for n, _, _, _ in kernels}
 
     def path_input(sub):
         return np.ascontiguousarray(img[..., 0]) if sub == "gray" else img
+
+    def want_launches(sub, ns, kw):
+        """Each kernel's launches in one 3840x2160 encode of a path with
+        the selectors kw."""
+        ds = kw.get("device_stuff", True)
+        fuse = bool(kw.get("fuse_bp")) and sub in fused_pipeline.FUSED_MODES
+        split_px = fused_dctq.uses_fused(h, w, sub) and not fuse
+        route = kw.get("pixel_path", "nat")
+        dc = bool(kw.get("pixel_dc"))
+        return {"pixel": int(split_px and route == "nat" and not dc),
+                "block_pack": int(not fuse), "seg_merge": 1,
+                "stuff": int(ds and ns > 1),
+                "stuff_chunks": int(ds and ns == 1),
+                "compact": int(not ds), "fused_px_bp": int(fuse),
+                "pixel_dc": int(split_px and route == "nat" and dc),
+                "pixel_i8": 0,
+                "pixel_dma": int(split_px and route == "dma" and sub == "420")}
+
+    def selectors(kw):
+        return "".join(f" {k}={v}" for k, v in kw.items())
 
     def path_geometry(image, sub, restart_interval):
         cfg = EncoderConfig(quality=QUALITY, subsampling=sub,
@@ -517,24 +624,23 @@ def main() -> int:
             launches[n] += counts[n]
         return out, counts
 
-    for sub, restart_interval, ds in (
-            [(sub, r, True) for sub, r in PATHS] +
-            [(sub, r, False) for sub, r in HOST_STUFF_PATHS]):
+    for sub, restart_interval, kw in (
+            [(sub, r, {}) for sub, r in PATHS] +
+            [(sub, r, {"device_stuff": False})
+             for sub, r in HOST_STUFF_PATHS] + list(SELECTOR_PATHS)):
         image = path_input(sub)
         _, r, (ns, _) = path_geometry(image, sub, restart_interval)
-        want = {"pixel": fused_dctq.uses_fused(h, w, sub), "block_pack": 1,
-                "seg_merge": 1, "stuff": ds and ns > 1,
-                "stuff_chunks": ds and ns == 1, "compact": not ds}
-        jpg, counts = counted(lambda: jpegtpu_torch.encode(
-            image, quality=QUALITY, subsampling=sub,
-            restart_interval=restart_interval, device_stuff=ds))
+        want = want_launches(sub, ns, kw)
+        jpg, counts = counted(lambda: run_path(kw, lambda f: (
+            jpegtpu_torch.encode(image, quality=QUALITY, subsampling=sub,
+                                 restart_interval=restart_interval, **f))))
         label = (f"{w}x{h} q{QUALITY} {sub} restart {restart_interval!r}"
-                 f"{'' if ds else ' device_stuff=False'}")
+                 f"{selectors(kw)}")
         print(f"[e2e] encode {label}: {len(jpg)} bytes, launches {counts}")
-        missed = [n for n, on in want.items() if on and counts[n] < 1]
-        if missed:
-            raise AssertionError(f"{label}: kernels {missed} did not run")
-        if jpg != encode_plain(image, sub, restart_interval, ds):
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, want {want}")
+        if jpg != encode_plain(image, sub, restart_interval,
+                               kw.get("device_stuff", True)):
             raise AssertionError(f"{label}: bytes differ from the "
                                  f"plain-twin pipeline")
         n_rst = ns - 1 if r > 0 else 0
@@ -542,20 +648,39 @@ def main() -> int:
         print(f"[e2e] {label}: bytes equal to the plain-twin pipeline on "
               f"the GPU; {n_rst} RST markers in order; stuffing valid")
 
+    # The i8-view kernel's entry point (jpegtpu's encode_blocks_pallas_pairs,
+    # which no encode path of jpegtpu takes either): one launch, the
+    # coefficients of the pixel twin.
+    got8, counts = counted(lambda: fused_dctq.encode_blocks_i8_pairs(
+        x, tables.m, tables.bias))
+    want = dict.fromkeys(counts, 0)
+    want["pixel_i8"] = 1
+    if counts != want or diff(got8, coeffs_p)[0]:
+        raise AssertionError(f"encode_blocks_i8_pairs: launches {counts}, "
+                             f"want {want}, or coefficients differ")
+    print(f"[e2e] fused_dctq.encode_blocks_i8_pairs {w}x{h} 420: launches "
+          f"{counts}; coefficients equal to the pixel twin's")
+    del got8
+
     # The batch paths: one program over 8 x 1920x1080 (golden_image()
-    # first), each kernel launched once, every file equal to the
-    # per-image encode of its image, RST markers 0..7 from each image's
-    # start, and golden_image()'s file at GOLDEN_SHA256.
+    # first), each kernel launched once (with fuse_bp the fused kernel in
+    # place of K1 and K2), every file equal to the per-image encode of its
+    # image, RST markers 0..7 from each image's start, and golden_image()'s
+    # file at GOLDEN_SHA256.
     singles = [jpegtpu_torch.encode(im, quality=QUALITY) for im in batch]
-    for ds in (True, False):
+    for bkw in ({"device_stuff": True}, {"device_stuff": False},
+                {"fuse_bp": True}):
+        ds, fuse = bkw.get("device_stuff", True), bkw.get("fuse_bp", False)
         files, counts = counted(lambda: jpegtpu_torch.encode_batch(
-            list(batch), quality=QUALITY, device_stuff=ds))
+            list(batch), quality=QUALITY, **bkw))
         label = (f"encode_batch {BATCH} x {GOLDEN_SHAPE[1]}x"
-                 f"{GOLDEN_SHAPE[0]} q{QUALITY} 420 rows device_stuff={ds}")
+                 f"{GOLDEN_SHAPE[0]} q{QUALITY} 420 rows{selectors(bkw)}")
         print(f"[e2e] {label}: {sum(map(len, files))} bytes, launches "
               f"{counts}")
-        want = {"pixel": 1, "block_pack": 1, "seg_merge": 1,
-                "stuff": int(ds), "stuff_chunks": 0, "compact": int(not ds)}
+        want = dict.fromkeys(counts, 0)
+        want.update(pixel=int(not fuse), block_pack=int(not fuse),
+                    seg_merge=1, stuff=int(ds), compact=int(not ds),
+                    fused_px_bp=int(fuse))
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, want {want}")
         for i, jpg in enumerate(files):
@@ -579,6 +704,15 @@ def main() -> int:
           f"{len(gold)} bytes sha256 {digest}")
     if digest != GOLDEN_SHA256:
         raise AssertionError(f"golden sha256 {digest} != {GOLDEN_SHA256}")
+    for _, _, kw in (p for p in SELECTOR_PATHS if p[:2] == ("420", "rows")):
+        gold = run_path(kw, lambda f: jpegtpu_torch.encode(
+            golden_image(), quality=QUALITY, subsampling="420", **f))
+        digest = hashlib.sha256(gold).hexdigest()
+        print(f"[golden] {GOLDEN_SHAPE[1]}x{GOLDEN_SHAPE[0]} q{QUALITY}"
+              f"{selectors(kw)}: {len(gold)} bytes sha256 {digest}")
+        if digest != GOLDEN_SHA256:
+            raise AssertionError(f"golden{selectors(kw)} sha256 {digest} != "
+                                 f"{GOLDEN_SHA256}")
     for label, (sub, restart_interval, image_name, sha) in GOLDENS.items():
         gold = jpegtpu_torch.encode(golden_input(image_name),
                                     quality=QUALITY, subsampling=sub,
@@ -631,6 +765,26 @@ def main() -> int:
                              sw0, sb0, 0)),
         "compact": (lambda: compact.compact_segments(sw, sb),
                     lambda: compact.compact_segments_plain(sw, sb)),
+        "fused_px_bp": (
+            lambda: fused_pipeline.fused_pixel_block_pack_pairs(
+                x, tables, "420", restart),
+            lambda: fused_pipeline.fused_pixel_block_pack_pairs_plain(
+                x, tables, "420", restart)),
+        "pixel_dc": (
+            lambda: fused_dctq.encode_blocks_pairs(x, tables.m, tables.bias,
+                                                   with_dc=True),
+            lambda: fused_dctq.dc_plane(fused_dctq.encode_blocks_pairs_plain(
+                x, tables.m, tables.bias))),
+        "pixel_i8": (
+            lambda: fused_dctq.encode_blocks_i8_pairs(x, tables.m,
+                                                      tables.bias),
+            lambda: fused_dctq.pixel_i8_plain(fused_dctq.i8_view(x),
+                                              tables.m, tables.bias)),
+        "pixel_dma": (
+            lambda: fused_dctq.encode_blocks_dma_pairs(x, tables.m,
+                                                       tables.bias),
+            lambda: fused_dctq.encode_blocks_pairs_plain(x, tables.m,
+                                                         tables.bias)),
     }
     for sub in ("422", "444", "444s"):
         t = tabs[sub]
@@ -647,6 +801,17 @@ def main() -> int:
         times[label] = (min(k1, k2), min(p1, p2))
         line(f"{label} kernel (wrapper + glue)", times[label][0])
         line(f"{label} plain twin", times[label][1])
+    # The pixel kernels at 4:2:0 alone (profiler), by their template
+    # arguments: K1, K12 (its DC plane), K13 (int8 input), K14, K11.
+    pixel_keys = {
+        "pixel": ("pixel_kernel<16, 16, 384, 8, unsigned char, false>",),
+        "pixel_dc": ("pixel_kernel<16, 16, 384, 8, unsigned char, true>",),
+        "pixel_i8": ("pixel_kernel<16, 16, 384, 8, signed char, false>",),
+        "pixel_dma": ("pixel_dma_kernel(",),
+        "fused_px_bp": ("fused_px_bp_kernel<16, 16, 384, 7>",)}
+    for n, keys in pixel_keys.items():
+        print(f"[time] {n} kernel alone (profiler), 420 {w}x{h}: "
+              f"{kernel_device_ms(pairs[n][0], *keys)} ms  [{card}]")
     line("stuff.cu (one block per segment) on the restart-0 segment",
          time_ms(lambda: compact.compact_segments_stuffed_grouped(
              sw0, sb0, 0)))
@@ -720,14 +885,33 @@ def main() -> int:
              f" x {tuple(m64.shape)}", library[sub])
         del tiles
 
+    def device_path(image, sub, r, kw):
+        """One device encode of a path with the selectors kw (no fetch)."""
+        return run_path(kw, lambda f: device_encode(
+            image, tabs[sub], sub, r, True, f.get("pixel_path", "nat"),
+            f.get("fuse_bp", False)))
+
     dev_ms = {}
     for sub, restart_interval in PATHS:
         image = torch.from_numpy(path_input(sub)).to(dev)
         _, r, _ = path_geometry(path_input(sub), sub, restart_interval)
-        dev_ms[sub, restart_interval] = time_ms(
+        dev_ms[sub, restart_interval, ""] = time_ms(
             lambda: device_encode(image, tabs[sub], sub, r))
         line(f"encode on device (no host fetch), {sub} restart "
-             f"{restart_interval!r}", dev_ms[sub, restart_interval])
+             f"{restart_interval!r}", dev_ms[sub, restart_interval, ""])
+    # Each selector path beside its split path (the same mode and
+    # interval), in turns: split, path, path, split.
+    for sub, restart_interval, kw in SELECTOR_PATHS:
+        _, r, _ = path_geometry(img, sub, restart_interval)
+        split = lambda: device_encode(x, tabs[sub], sub, r)  # noqa: E731
+        sel = lambda: device_path(x, sub, r, kw)  # noqa: E731
+        a1, b1, b2, a2 = time_ms(split), time_ms(sel), time_ms(sel), \
+            time_ms(split)
+        dev_ms[sub, restart_interval, selectors(kw)] = min(b1, b2)
+        line(f"encode on device (no host fetch), {sub} restart "
+             f"{restart_interval!r}{selectors(kw)}", min(b1, b2))
+        line(f"  beside it: {sub} restart {restart_interval!r} split path",
+             min(a1, a2))
     enc = jpegtpu_torch.Encoder(jpegtpu_torch.EncoderConfig(
         quality=QUALITY, subsampling="420"))
     enc.encode(img)
@@ -741,10 +925,10 @@ def main() -> int:
     # fetch of the byte counts (the sync), the fetch of exactly the
     # compacted bytes, the host stuffing and the wrap, each on the host
     # clock, over TIMING_REPS after warm-up.
-    dev_ms["420", "rows", "host stuffing"] = time_ms(
+    dev_ms["420", "rows", " device_stuff=False"] = time_ms(
         lambda: device_encode(x, tables, "420", restart, False))
     line("encode on device (no host fetch), 420 rows device_stuff=False",
-         dev_ms["420", "rows", "host stuffing"])
+         dev_ms["420", "rows", " device_stuff=False"])
 
     def host_split():
         t0 = time.perf_counter()
@@ -779,28 +963,35 @@ def main() -> int:
     # The batch: one program for 8 x 1920x1080 beside 8 single device
     # encodes of the same images, in turns (batch, singles, singles, batch).
     bmpix = BATCH * GOLDEN_SHAPE[0] * GOLDEN_SHAPE[1] / 1e6
-    for ds in (True, False):
+    for ds, fuse in ((True, False), (False, False), (True, True)):
         one = lambda: device_encode_batch(  # noqa: E731
-            xb, tables, "420", bmx, ds)
-        each = lambda: [device_encode(xb[i], tables, "420", bmx, ds)  # noqa
-                        for i in range(BATCH)]
+            xb, tables, "420", bmx, ds, fuse_bp=fuse)
+        each = lambda: [device_encode(xb[i], tables, "420", bmx, ds,  # noqa
+                                      fuse_bp=fuse) for i in range(BATCH)]
         b1, s1, s2, b2 = time_ms(one), time_ms(each), time_ms(each), \
             time_ms(one)
-        dev_ms["batch", ds] = min(b1, b2)
+        dev_ms["batch", ds, fuse] = min(b1, b2)
         for label, ms in (("one batch program", min(b1, b2)),
                           (f"{BATCH} single device encodes", min(s1, s2))):
             print(f"[time] {BATCH} x {GOLDEN_SHAPE[1]}x{GOLDEN_SHAPE[0]} "
-                  f"420 rows device_stuff={ds}, {label}: {ms:.4f} ms per "
-                  f"batch  {bmpix / ms * 1e3:.2f} MPix/s  [{card}]")
+                  f"420 rows device_stuff={ds} fuse_bp={fuse}, {label}: "
+                  f"{ms:.4f} ms per batch  {bmpix / ms * 1e3:.2f} MPix/s  "
+                  f"[{card}]")
     print("[profile] encode_batch device program, device_stuff=True")
     profile_device_encode(
         lambda: device_encode_batch(xb, tables, "420", bmx, True),
-        dev_ms["batch", True], card)
-    for sub, restart_interval in PROFILED:
+        dev_ms["batch", True, False], card)
+    print("[profile] encode_batch device program, fuse_bp=True")
+    profile_device_encode(
+        lambda: device_encode_batch(xb, tables, "420", bmx, True,
+                                    fuse_bp=True),
+        dev_ms["batch", True, True], card)
+    for sub, restart_interval, kw in PROFILED:
         _, r, _ = path_geometry(img, sub, restart_interval)
-        print(f"[profile] {sub} restart {restart_interval!r}")
-        profile_device_encode(lambda: device_encode(x, tabs[sub], sub, r),
-                              dev_ms[sub, restart_interval], card)
+        print(f"[profile] {sub} restart {restart_interval!r}{selectors(kw)}")
+        profile_device_encode(lambda: device_path(x, sub, r, kw),
+                              dev_ms[sub, restart_interval, selectors(kw)],
+                              card)
 
     # The least time the card could take for each kernel's work on these
     # inputs: the larger of its bytes (inputs read once, outputs written
@@ -829,6 +1020,17 @@ def main() -> int:
         bytes_moved[key] = (x.numel() + (t.m.numel() + t.bias.numel()) * 4
                             + nm * t.m.shape[1] * 4)
         flops[key] = 2.0 * nm * operator_fmas(t.m.cpu().numpy(), sub)
+    # K11: the image, the operator, the LUTs in, the valid MCU words and
+    # the lengths out, and K1's FLOPs (the halo MCU it recomputes is the
+    # kernel's own overhead, not work the function needs); K12 K1's bytes
+    # and the plane, K13 and K14 K1's.
+    bytes_moved["fused_px_bp"] = (
+        x.numel() + (tables.m.numel() + tables.bias.numel()) * 4 +
+        sum(t.numel() * 4 for t in luts) + (valid_mcu_words + n_mcu) * 4)
+    bytes_moved["pixel_dc"] = bytes_moved["pixel"] + n_mcu * 8 * 4
+    bytes_moved["pixel_i8"] = bytes_moved["pixel_dma"] = bytes_moved["pixel"]
+    for n in ("fused_px_bp", "pixel_dc", "pixel_i8", "pixel_dma"):
+        flops[n] = flops["pixel"]
     bound = {}
     for n, by in bytes_moved.items():
         t_bytes = by / HBM_BYTES_PER_S * 1e3
@@ -844,7 +1046,9 @@ def main() -> int:
          "launches": launches[n], "max_abs_err": errs[n],
          "ms": times[n][0], "plain_ms": times[n][1],
          "bound_ms": bound[n][0], "bound_by": bound[n][1],
-         "library_ms": library["420"] if n == "pixel" else None}
+         "library_ms": (library["420"] if n in ("pixel", "pixel_dc",
+                                                "pixel_i8", "pixel_dma")
+                        else None)}
         for n, _, src, rep in kernels]}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@ at every restart interval ("rows", 0 for none, or a number of MCUs);
 ``jpegtpu.encode_batch``'s files, one device program for a batch of
 same-shaped images whose restart segments divide each image's MCU count.
 ``device_stuff=False`` stuffs the scan on the host instead of the device,
+and jpegtpu's pixel-path selectors (``pixel_path`` "nat", "xla" or "dma",
+``fuse_bp``, the ``JPEGTPU_PIXEL_DC`` variable) choose other kernels, all
 with the same bytes. On a CUDA device it runs the hand-written kernels
 (built on first use from ``kernels/csrc``); with ``device="cpu"`` it runs
 their plain torch twins. The package imports torch and numpy, never JAX.

@@ -2,21 +2,29 @@
 
 The fields that change the output bytes (``quality``, ``subsampling``,
 ``restart_interval``), with ``jpegtpu.config``'s validation and messages,
-and ``device_stuff``, which chooses where the scan is stuffed (on the
-device, or on the host after a device compaction) and changes no bytes.
-jpegtpu's kernel-variant selectors (``pixel_path``, ``fuse_bp``,
-``compact_kb``, ``bp_merge_rot``, ``compact_groups``) and its first-pass
-``bits_budget`` choose between TPU kernels that give the same bytes; the
-port has one kernel per stage and sizes every buffer for the worst case,
-so it has none of them.
+and three that choose how the device program computes them and change no
+byte: ``device_stuff`` (the scan stuffed on the device, or on the host
+after a device compaction), ``pixel_path`` and ``fuse_bp``, jpegtpu's
+pixel-path selectors, each with jpegtpu's default, environment override
+(``JPEGTPU_PIXEL_PATH``, ``JPEGTPU_FUSE_BP``, read when a config is made)
+and validation. Each selects its own hand-written kernel here, as it
+selects its own TPU kernel in jpegtpu; ``JPEGTPU_PIXEL_DC`` (read at
+import, ``jpegtpu_torch.kernels.fused_dctq.PIXEL_DC``) is the third such
+selector, as in jpegtpu. jpegtpu's ``compact_kb``, ``bp_merge_rot``,
+``compact_groups`` and its first-pass ``bits_budget`` choose TPU layouts
+of one kernel, or a buffer size: the port has one layout per kernel and
+sizes every buffer for the worst case, so it has none of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 # Chroma subsampling modes (see jpegtpu.config for what each one means).
 SUBSAMPLING_MODES = ("444", "444s", "420", "422", "gray")
+# The pixel routes of pixel_path (see EncoderConfig).
+PIXEL_PATHS = ("nat", "xla", "dma")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +41,19 @@ class EncoderConfig:
     # the segments on the device and stuffs them on the host
     # (``native.stuff_assemble_contig``). The same bytes either way.
     device_stuff: bool = True
+    # The pixel route of the fused modes: "nat" the pixel kernel
+    # (csrc/pixel.cu), "dma" the kernel that stages its own input by
+    # asynchronous copies (csrc/pixel_dma.cu; 4:2:0 only, the other modes
+    # take "xla"), "xla" the tile gather and a float64 torch.matmul, no
+    # hand kernel. The same bytes on every route.
+    pixel_path: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("JPEGTPU_PIXEL_PATH", "nat"))
+    # One kernel for the pixel product, the DC differences and the block
+    # pack (csrc/fused_px_bp.cu), so that the coefficients never reach
+    # device memory; 4:2:0, 4:2:2 and 4:4:4 (4:4:4s and gray take the
+    # split kernels). The same bytes either way.
+    fuse_bp: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get("JPEGTPU_FUSE_BP", "0") != "0")
 
     def __post_init__(self):
         if not (1 <= self.quality <= 100):
@@ -46,6 +67,10 @@ class EncoderConfig:
                 raise ValueError("restart_interval must be an int >= 0 or 'rows'")
         elif self.restart_interval < 0:
             raise ValueError("restart_interval must be >= 0")
+        if self.pixel_path not in PIXEL_PATHS:
+            raise ValueError(
+                f"pixel_path must be 'nat', 'xla' or 'dma', "
+                f"got {self.pixel_path!r}")
 
     @property
     def mcu_shape(self) -> tuple:

@@ -2,16 +2,23 @@
 (counterpart of ``jpegtpu.encoder``: ``_device_encode_pallas`` and
 ``_device_encode_pallas_batch``, ``Encoder.encode_to_scan`` / ``encode``,
 ``encode_batch`` / ``_encode_batch_fused``), for every subsampling mode,
-restart interval and ``device_stuff`` setting.
+restart interval, ``device_stuff``, ``pixel_path`` and ``fuse_bp`` setting.
 
 The device program runs up to five kernels with plain torch glue between
 them:
 
-    pixel       fused_dctq.encode_blocks(_batch)  u8 -> coefficients
-                (the fused kernel, or the staged ops for gray and
-                non-8-aligned 4:4:4s)
-    (glue)      scan.dc_diffs_from_dc, the class vector
+    pixel       fused_dctq.encode_blocks_batch  u8 -> coefficients, by the
+                ``pixel_path`` route: "nat" the pixel kernel (or, with
+                ``fused_dctq.PIXEL_DC``, the kernel that also writes the DC
+                plane), "dma" the async-copy kernel (4:2:0), "xla" a
+                float64 torch.matmul; the staged ops for gray and
+                non-8-aligned 4:4:4s on every route
+    (glue)      scan.dc_diffs_from_dc (from the DC plane where there is
+                one), the class vector
     block pack  entropy_pack.block_pack_mcu_pairs   -> MCU bitstreams
+    or, with fuse_bp (4:2:0, 4:2:2, 4:4:4), for the three above
+    fused       fused_pipeline.fused_pixel_block_pack_pairs  u8 -> MCU
+                bitstreams, the DC differences in the kernel
     (glue)      zero-length pad MCUs for a ragged last segment, each MCU's
                 bit offset in its segment
     seg merge   entropy_pack.seg_merge_mcu          -> segment bitstreams
@@ -49,7 +56,8 @@ from jpegtpu_torch.container import jfif
 from jpegtpu_torch.core import ops, tables
 from jpegtpu_torch.entropy import huffman_tables as ht
 from jpegtpu_torch.entropy import scan
-from jpegtpu_torch.kernels import compact, entropy_pack, fused_dctq
+from jpegtpu_torch.kernels import (compact, entropy_pack, fused_dctq,
+                                   fused_pipeline)
 
 
 def block_operators(quality: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -153,35 +161,51 @@ def batch_segments(n_mcu: int, restart: int) -> int:
     return n_mcu // restart
 
 
-def _segments(coeffs: torch.Tensor, tables: EncoderTables, subsampling: str,
-              restart: int, n_seg: int,
-              mps: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Coefficients [nM, B*64] -> (segment streams, seg_bits) of n_seg
-    segments of mps MCUs: the DC differences (reset at every segment
-    start), the block pack, zero-length pad MCUs for a ragged last segment
-    and the segment merge."""
-    n_luma = EncoderConfig(subsampling=subsampling).n_luma
-    n_mcu, b = coeffs.shape[0], coeffs.shape[1] // 64
-    dcd = scan.dc_diffs_from_dc(coeffs[:, ::64], n_luma, restart).reshape(-1)
-    cls = (torch.arange(n_mcu * b, device=coeffs.device) % b >= n_luma
-           ).to(torch.int32)
-    mwords, mlens = entropy_pack.block_pack_mcu_pairs(coeffs, cls, dcd,
-                                                      *tables.luts())
+def _segments(imgs: torch.Tensor, tables: EncoderTables, subsampling: str,
+              restart: int, n_seg: int, mps: int, pixel_path: str = "nat",
+              fuse_bp: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """u8 [n, H, W, 3] (gray [n, H, W]) -> (segment streams, seg_bits) of
+    n_seg segments of mps MCUs over the images' MCUs in order, as
+    jpegtpu's programs dispatch (``encoder.py:181-211, 316-337``): the
+    fused front end with fuse_bp (4:2:0, 4:2:2, 4:4:4), else the pixel
+    route of pixel_path, the DC differences (reset at every segment start;
+    from the DC plane when ``fused_dctq.PIXEL_DC`` is set and the route is
+    "nat", else from the coefficients) and the block pack; then zero-length
+    pad MCUs for a ragged last segment and the segment merge."""
+    if fuse_bp and subsampling in fused_pipeline.FUSED_MODES:
+        padded = ops.pad_to_multiple(imgs, ops.mcu_shape(subsampling))
+        mwords, mlens = fused_pipeline.fused_pixel_block_pack_pairs(
+            padded.reshape(-1, *padded.shape[2:]), tables, subsampling,
+            restart)
+    else:
+        n_luma = EncoderConfig(subsampling=subsampling).n_luma
+        with_dc = fused_dctq.PIXEL_DC and pixel_path == "nat"
+        out = fused_dctq.encode_blocks_batch(imgs, tables, subsampling,
+                                             pixel_path, with_dc)
+        coeffs, dc = out if with_dc else (out, None)
+        n_mcu, b = coeffs.shape[0], coeffs.shape[1] // 64
+        dc_src = coeffs[:, ::64] if dc is None else dc[:, :b]
+        dcd = scan.dc_diffs_from_dc(dc_src, n_luma, restart).reshape(-1)
+        cls = entropy_pack.block_classes(n_mcu, b, n_luma, coeffs.device)
+        mwords, mlens = entropy_pack.block_pack_mcu_pairs(coeffs, cls, dcd,
+                                                          *tables.luts())
     mwords, mlens = entropy_pack.pad_segments(mwords, mlens, n_seg, mps)
     return entropy_pack.seg_merge_mcu(mwords, mlens, n_seg, mps)
 
 
 def device_encode(img: torch.Tensor, tables: EncoderTables, subsampling: str,
-                  restart: int, device_stuff: bool = True
+                  restart: int, device_stuff: bool = True,
+                  pixel_path: str = "nat", fuse_bp: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """u8 [H, W, 3] (gray [H, W]) on the tables' device -> the device
     program's output: with device_stuff, (u8 scan buffer, total bytes
     scalar); without, (u8 compacted stream, nbytes [n_seg] int64), which
-    the host stuffs (``native.stuff_assemble_contig``)."""
-    coeffs = fused_dctq.encode_blocks(img, tables, subsampling)
-    n_seg, mps = geometry(coeffs.shape[0], restart)
-    seg_words, seg_bits = _segments(coeffs, tables, subsampling, restart,
-                                    n_seg, mps)
+    the host stuffs (``native.stuff_assemble_contig``). pixel_path and
+    fuse_bp choose the kernels (``_segments``), never the bytes."""
+    my, mx = ops.mcu_grid(img.shape[0], img.shape[1], subsampling)
+    n_seg, mps = geometry(my * mx, restart)
+    seg_words, seg_bits = _segments(img[None], tables, subsampling, restart,
+                                    n_seg, mps, pixel_path, fuse_bp)
     if not device_stuff:
         return compact.compact_segments(seg_words, seg_bits)
     if n_seg > 1:
@@ -192,23 +216,24 @@ def device_encode(img: torch.Tensor, tables: EncoderTables, subsampling: str,
 
 def device_encode_batch(imgs: torch.Tensor, tables: EncoderTables,
                         subsampling: str, restart: int,
-                        device_stuff: bool = True) -> Tuple[torch.Tensor, ...]:
+                        device_stuff: bool = True, pixel_path: str = "nat",
+                        fuse_bp: bool = False) -> Tuple[torch.Tensor, ...]:
     """u8 [n, H, W, 3] (gray [n, H, W]) on the tables' device -> one device
     program for the batch (jpegtpu's ``_device_encode_pallas_batch``,
     ``encoder.py:298-395``). The batch is flattened into the MCU
     dimension; with restart segments that divide each image's MCU count
     (else ``BatchGeometryError``), image boundaries are segment starts, so
     the DC resets and the merge need no per-image case, and each kernel
-    launches once. With device_stuff, (u8 scan buffer, total bytes scalar,
-    each image's first byte [n] int64): the images' scans back to back,
-    RST markers numbered from 0 in each; without, (u8 compacted stream,
-    nbytes [n, segments per image] int64)."""
+    launches once (with fuse_bp the fused kernel once). With device_stuff,
+    (u8 scan buffer, total bytes scalar, each image's first byte [n]
+    int64): the images' scans back to back, RST markers numbered from 0 in
+    each; without, (u8 compacted stream, nbytes [n, segments per image]
+    int64)."""
     n = imgs.shape[0]
     my, mx = ops.mcu_grid(imgs.shape[1], imgs.shape[2], subsampling)
     spi = batch_segments(my * mx, restart)
-    coeffs = fused_dctq.encode_blocks_batch(imgs, tables, subsampling)
-    seg_words, seg_bits = _segments(coeffs, tables, subsampling, restart,
-                                    n * spi, restart)
+    seg_words, seg_bits = _segments(imgs, tables, subsampling, restart,
+                                    n * spi, restart, pixel_path, fuse_bp)
     if not device_stuff:
         buf, nbytes = compact.compact_segments(seg_words, seg_bits)
         return buf, nbytes.reshape(n, spi)
@@ -255,8 +280,10 @@ class Encoder:
         img = _pixels(img, self.config.subsampling)
         restart = self.restart_for(*img.shape[:2])
         x = torch.from_numpy(img).to(self.device)
-        buf, meta = device_encode(x, self.tables, self.config.subsampling,
-                                  restart, self.config.device_stuff)
+        cfg = self.config
+        buf, meta = device_encode(x, self.tables, cfg.subsampling, restart,
+                                  cfg.device_stuff, cfg.pixel_path,
+                                  cfg.fuse_bp)
         if self.config.device_stuff:
             return buf[:int(meta)].cpu().numpy().tobytes(), restart
         # The byte counts first (a tiny fetch, and the sync), then exactly
@@ -288,8 +315,10 @@ class Encoder:
         my, mx = ops.mcu_grid(h, w, self.config.subsampling)
         batch_segments(my * mx, restart)
         x = torch.from_numpy(imgs).to(self.device)
-        out = device_encode_batch(x, self.tables, self.config.subsampling,
-                                  restart, self.config.device_stuff)
+        cfg = self.config
+        out = device_encode_batch(x, self.tables, cfg.subsampling, restart,
+                                  cfg.device_stuff, cfg.pixel_path,
+                                  cfg.fuse_bp)
         if self.config.device_stuff:
             buf, total, img_off = out
             # One fetch of the offsets and the total, one of the scan.
@@ -311,7 +340,8 @@ def encode(img: np.ndarray, quality: int = 50, subsampling: str = "420",
            restart_interval: int | str = "rows",
            device: torch.device | str | None = None, **kw) -> bytes:
     """One-shot convenience wrapper; device None means "cuda"; other
-    ``EncoderConfig`` fields (``device_stuff``) as keywords."""
+    ``EncoderConfig`` fields (``device_stuff``, ``pixel_path``,
+    ``fuse_bp``) as keywords."""
     cfg = EncoderConfig(quality=quality, subsampling=subsampling,
                         restart_interval=restart_interval, **kw)
     return Encoder(cfg, device=device).encode(img)

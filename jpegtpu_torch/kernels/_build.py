@@ -5,8 +5,8 @@ each in its own process, into one shared library with a plain C interface,
 and loaded
 with ``ctypes``: no PyTorch headers, so the build takes seconds, and no
 ``ninja``. The library lands in ``_build/`` beside this file, named by a
-hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is reused. The pattern is ``jpegtpu/native/__init__.py``'s.
+hash of the sources, the headers they share and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. The pattern is ``jpegtpu/native/__init__.py``'s.
 
 Each launcher takes device pointers, sizes and a CUDA stream, launches on
 that stream and returns the ``cudaError_t`` of the launch, which
@@ -32,7 +32,9 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("pixel.cu", "block_pack.cu", "seg_merge.cu", "stuff.cu",
-           "stuff_chunks.cu", "compact.cu")
+           "stuff_chunks.cu", "compact.cu", "fused_px_bp.cu", "pixel_dma.cu")
+# Headers the sources include; part of the library's hash.
+HEADERS = ("pixel_common.cuh", "block_pack.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # ctypes types of the launchers' arguments; every launcher takes the CUDA
@@ -53,7 +55,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libjpegtpu_torch_{h.hexdigest()[:16]}.so"

@@ -51,6 +51,15 @@ def segment_words(n_seg: int, mps: int, mw: int) -> int:
     return -(-words // 1024) * 1024 if n_seg == 1 else words
 
 
+def block_classes(n_mcu: int, g: int, n_luma: int,
+                  device: torch.device) -> torch.Tensor:
+    """The class of every block of n_mcu MCUs of g blocks, [n_mcu * g]
+    int32 (the block pack's ``cls``): 0 for luma (the first n_luma of each
+    MCU), 1 for chroma."""
+    return (torch.arange(n_mcu * g, device=device) % g >= n_luma
+            ).to(torch.int32)
+
+
 def block_pack_mcu_pairs_plain(c2: torch.Tensor, cls: torch.Tensor,
                                dcdiff: torch.Tensor, dc_codes: torch.Tensor,
                                dc_lens: torch.Tensor, ac_codes: torch.Tensor,

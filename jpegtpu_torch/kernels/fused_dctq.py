@@ -12,10 +12,26 @@ for 4:4:4 and 4:4:4s (whose operator folds the 2x2 chroma smoothing in).
 the staged ops of ``jpegtpu_torch.core.ops`` for gray and for 4:4:4s of
 another size (smoothing comes before padding there, which no per-MCU
 operator expresses); ``encode_blocks_batch`` codes a batch of images in
-one call. ``encode_blocks_pairs`` is the fused product: on a
-CUDA tensor it launches the hand-written kernel ``csrc/pixel.cu`` (the
-port of ``_pixel_kernel_nat``); on a CPU tensor it runs the plain twin
-``encode_blocks_pairs_plain``.
+one call, by the route that ``pixel_path`` names (jpegtpu's
+``encoder._pixel_path_pairs``). The fused product has four hand kernels
+and one library route, each the counterpart of one jpegtpu function:
+
+    encode_blocks_pairs           csrc/pixel.cu jt_pixel (K1,
+                                  _pixel_kernel_nat); "nat"
+    encode_blocks_pairs(with_dc)  csrc/pixel.cu jt_pixel_dc (K12,
+                                  _pixel_kernel_nat_dc), the DC plane too;
+                                  "nat" when ``PIXEL_DC`` is set
+    encode_blocks_i8_pairs        csrc/pixel.cu jt_pixel_i8 (K13,
+                                  _pixel_kernel, encode_blocks_pallas_pairs)
+    encode_blocks_dma_pairs       csrc/pixel_dma.cu (K14, _pixel_kernel_dma,
+                                  encode_blocks_pallas_dma_pairs); "dma"
+    encode_blocks_matmul_pairs    float64 torch.matmul (jpegtpu's XLA
+                                  encode_blocks_pairs); "xla"
+
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
+the plain twin (``encode_blocks_pairs_plain``, ``dc_plane``,
+``pixel_i8_plain``). K13 and K14 exist for 4:2:0 alone, as in jpegtpu;
+their wrappers give the other modes to the "xla" route, as jpegtpu's do.
 
 The product accumulates in float64. jpegtpu's f32 product on CPU and an f32
 product summed in any other order disagree on a few coefficients that sit
@@ -26,11 +42,13 @@ float64, and the float64 sum matched jpegtpu on every image tried.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from jpegtpu_torch.config import PIXEL_PATHS
 from jpegtpu_torch.core import ops, tables
 from jpegtpu_torch.kernels import _build
 
@@ -38,6 +56,22 @@ PIXEL = _build.Kernel("jt_pixel", [
     _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img, m, bias, out
     _build.I64, _build.I64, _build.I64,               # n_mcu, nrx, row_bytes
     _build.I32, _build.I32])                          # MCU height, width
+PIXEL_DC_PLANE = _build.Kernel("jt_pixel_dc", [
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img, m, bias, out
+    _build.PTR,                                       # dc
+    _build.I64, _build.I64, _build.I64,               # n_mcu, nrx, row_bytes
+    _build.I32, _build.I32])                          # MCU height, width
+PIXEL_I8 = _build.Kernel("jt_pixel_i8", [
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img (i8), m, bias, out
+    _build.I64, _build.I64, _build.I64])              # n_mcu, nrx, row_bytes
+PIXEL_DMA = _build.Kernel("jt_pixel_dma", [
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img, m, bias, out
+    _build.I64, _build.I64, _build.I64])              # n_mcu, nrx, row_bytes
+
+# Take the DC plane from the DC-plane kernel on the "nat" route (jpegtpu's
+# _PIXEL_DC, read from the same variable at import, fused_dctq.py:354).
+PIXEL_DC = os.environ.get("JPEGTPU_PIXEL_DC", "0") != "0"
+DC_LANES = 8                                          # lanes of a DC row
 
 
 def fused_geometry(subsampling: str) -> Tuple[int, int, int, int]:
@@ -132,25 +166,37 @@ def mcu_tiles(img: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
     return x.reshape((h // mh) * (w // mw), mh * mw * ch)
 
 
-def encode_blocks_pairs_plain(img: torch.Tensor, m: torch.Tensor,
-                              bias: torch.Tensor,
-                              subsampling: str = "420") -> torch.Tensor:
-    """Plain twin of the pixel kernel: u8 [H, W, 3] -> int32 [nMCU, B*64]
-    (block-major columns: block i's zigzag slots at [64i, 64i+64))."""
-    mh, mw, _, _ = fused_geometry(subsampling)
-    padded = ops.pad_to_multiple(img, (mh, mw))
+def _tile_product(padded: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
+                  mh: int, mw: int) -> torch.Tensor:
+    """MCU tile gather of a padded image, float64 product, round half
+    away: int32 [nMCU, B*64]."""
     x = mcu_tiles(padded, mh, mw).to(torch.float64)
     y = x @ m.to(torch.float64) + bias.to(torch.float64)
     return ops.round_half_away(y).to(torch.int32)
 
 
-def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
-                        bias: torch.Tensor,
-                        subsampling: str = "420") -> torch.Tensor:
-    """u8 RGB [H, W, 3] -> int32 [nMCU, B*64] quantized zigzag coefficients
-    of the MCUs of a fused mode, in raster MCU order, with ``m``/``bias``
-    that mode's ``mcu_operator``. Launches ``csrc/pixel.cu`` on a CUDA
-    tensor; runs the plain twin on a CPU tensor."""
+def encode_blocks_pairs_plain(img: torch.Tensor, m: torch.Tensor,
+                              bias: torch.Tensor,
+                              subsampling: str = "420") -> torch.Tensor:
+    """Plain twin of the pixel kernels (K1, and K14 on 4:2:0): u8
+    [H, W, 3] -> int32 [nMCU, B*64] (block-major columns: block i's zigzag
+    slots at [64i, 64i+64))."""
+    mh, mw, _, _ = fused_geometry(subsampling)
+    return _tile_product(ops.pad_to_multiple(img, (mh, mw)), m, bias, mh, mw)
+
+
+def dc_plane(coeffs: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the DC plane: int32 [nMCU, DC_LANES], lane k the DC
+    coefficient of block k (column 64k), lanes B..7 zero."""
+    dc = coeffs.new_zeros((coeffs.shape[0], DC_LANES))
+    dc[:, :coeffs.shape[1] // 64] = coeffs[:, ::64]
+    return dc
+
+
+def operand_geometry(img: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
+                     subsampling: str) -> Tuple[int, int, int, int]:
+    """Raise unless img is u8 [H, W, 3] and m/bias are the operator of a
+    fused mode; its fused_geometry."""
     if img.dtype != torch.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected uint8 [H, W, 3], got {img.dtype} "
                          f"{tuple(img.shape)}")
@@ -159,19 +205,135 @@ def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
         raise ValueError(f"{subsampling} operator must be [{n_in}, {n_out}] "
                          f"+ [{n_out}], got {tuple(m.shape)}, "
                          f"{tuple(bias.shape)}")
-    if img.device.type == "cpu":
-        return encode_blocks_pairs_plain(img, m, bias, subsampling)
+    return mh, mw, n_in, n_out
+
+
+def _cuda_operands(img, m, bias, mh, mw):
+    """(padded image, f32 m, f32 bias, nrx, n_mcu) as contiguous CUDA
+    tensors for a pixel kernel."""
     padded = ops.pad_to_multiple(img, (mh, mw)).contiguous()
     m = m.to(torch.float32).contiguous()
     bias = bias.to(torch.float32).contiguous()
     _build.check_cuda(padded, m, bias)
     h, w, _ = padded.shape
-    nrx = w // mw
-    n_mcu = (h // mh) * nrx
+    return padded, m, bias, w // mw, (h // mh) * (w // mw)
+
+
+def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
+                        bias: torch.Tensor, subsampling: str = "420",
+                        with_dc: bool = False):
+    """u8 RGB [H, W, 3] -> int32 [nMCU, B*64] quantized zigzag coefficients
+    of the MCUs of a fused mode, in raster MCU order, with ``m``/``bias``
+    that mode's ``mcu_operator`` (jpegtpu's
+    ``encode_blocks_pallas_nat_pairs``). Launches ``csrc/pixel.cu``
+    (``jt_pixel``) on a CUDA tensor; runs the plain twin on a CPU tensor.
+
+    with_dc: return (coeffs, dc), dc [nMCU, DC_LANES] int32 with dc[:, k]
+    = coeffs[:, 64k] and the lanes >= B zero, from one launch of the
+    DC-plane kernel (``jt_pixel_dc``). jpegtpu gives no plane (None) when
+    its kernel's lane rule refuses the width; the port has no such rule."""
+    mh, mw, _, n_out = operand_geometry(img, m, bias, subsampling)
+    if img.device.type == "cpu":
+        y = encode_blocks_pairs_plain(img, m, bias, subsampling)
+        return (y, dc_plane(y)) if with_dc else y
+    padded, m, bias, nrx, n_mcu = _cuda_operands(img, m, bias, mh, mw)
     out = torch.empty((n_mcu, n_out), dtype=torch.int32,
                       device=padded.device)
-    PIXEL.launch(padded.data_ptr(), m.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), n_mcu, nrx, w * 3, mh, mw)
+    if not with_dc:
+        PIXEL.launch(padded.data_ptr(), m.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), n_mcu, nrx, padded.shape[1] * 3, mh, mw)
+        return out
+    dc = torch.empty((n_mcu, DC_LANES), dtype=torch.int32,
+                     device=padded.device)
+    PIXEL_DC_PLANE.launch(padded.data_ptr(), m.data_ptr(), bias.data_ptr(),
+                          out.data_ptr(), dc.data_ptr(), n_mcu, nrx,
+                          padded.shape[1] * 3, mh, mw)
+    return out, dc
+
+
+def encode_blocks_matmul_pairs(img: torch.Tensor, m: torch.Tensor,
+                               bias: torch.Tensor,
+                               subsampling: str = "420") -> torch.Tensor:
+    """The "xla" route: u8 [H, W, 3] -> int32 [nMCU, B*64] by the MCU tile
+    gather, one float64 ``torch.matmul`` and round half away, on the
+    image's device. The counterpart of jpegtpu's ``encode_blocks_pairs``,
+    which leaves this product to XLA outside any Pallas kernel, so it is a
+    library call here by design and launches no hand kernel."""
+    mh, mw, _, _ = operand_geometry(img, m, bias, subsampling)
+    return _tile_product(ops.pad_to_multiple(img, (mh, mw)), m, bias, mh, mw)
+
+
+def pixel_i8_plain(x8: torch.Tensor, m: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the i8-view kernel: the centred int8 view [rows, mh,
+    nrx, row_bytes] of a padded image (x ^ 0x80, i.e. x - 128) -> int32
+    [rows * nrx, B*64], each pixel restored exactly as int8 + 128.0."""
+    rows, mh, nrx, rb = x8.shape
+    x = x8.permute(0, 2, 1, 3).reshape(rows * nrx, mh * rb)
+    y = (x.to(torch.float64) + 128.0) @ m.to(torch.float64) + \
+        bias.to(torch.float64)
+    return ops.round_half_away(y).to(torch.int32)
+
+
+def i8_view(img: torch.Tensor) -> torch.Tensor:
+    """The i8-view kernel's input: a u8 [H, W, 3] image padded to whole
+    4:2:0 MCUs, XOR 0x80, viewed as int8 [rows, 16, nrx, 48] (a reshape
+    of the padded image, jpegtpu's ``fused_dctq.py:216-217``)."""
+    padded = ops.pad_to_multiple(img, (16, 16))
+    h, w, _ = padded.shape
+    x8 = torch.bitwise_xor(padded, 0x80).view(torch.int8)
+    return x8.reshape(h // 16, 16, w // 16, 48)
+
+
+def encode_blocks_i8_pairs(img: torch.Tensor, m: torch.Tensor,
+                           bias: torch.Tensor,
+                           subsampling: str = "420") -> torch.Tensor:
+    """The counterpart of jpegtpu's ``encode_blocks_pallas_pairs``: u8
+    [H, W, 3] -> int32 [nMCU, B*64]. For 4:2:0 the glue views the padded
+    image XOR 0x80 as int8 [rows, 16, nrx, 48] (``fused_dctq.py:216-217``)
+    and ``csrc/pixel.cu`` (``jt_pixel_i8``) restores + 128 on a CUDA
+    tensor, the plain twin ``pixel_i8_plain`` on a CPU tensor; the other
+    modes take the "xla" route (``encode_blocks_matmul_pairs``), as
+    jpegtpu's ``:210-213`` takes its XLA path."""
+    n_out = operand_geometry(img, m, bias, subsampling)[3]
+    if subsampling != "420":
+        return encode_blocks_matmul_pairs(img, m, bias, subsampling)
+    x8 = i8_view(img)
+    if img.device.type == "cpu":
+        return pixel_i8_plain(x8, m, bias)
+    m = m.to(torch.float32).contiguous()
+    bias = bias.to(torch.float32).contiguous()
+    _build.check_cuda(x8, m, bias)
+    rows, _, nrx, row_bytes = x8.shape
+    out = torch.empty((rows * nrx, n_out), dtype=torch.int32,
+                      device=x8.device)
+    PIXEL_I8.launch(x8.data_ptr(), m.data_ptr(), bias.data_ptr(),
+                    out.data_ptr(), rows * nrx, nrx, nrx * row_bytes)
+    return out
+
+
+def encode_blocks_dma_pairs(img: torch.Tensor, m: torch.Tensor,
+                            bias: torch.Tensor,
+                            subsampling: str = "420") -> torch.Tensor:
+    """The "dma" route, counterpart of jpegtpu's
+    ``encode_blocks_pallas_dma_pairs``: u8 [H, W, 3] -> int32 [nMCU,
+    B*64]. For 4:2:0 on a CUDA tensor ``csrc/pixel_dma.cu`` reads the
+    padded u8 image where it lies and stages its own input by asynchronous
+    copies; on a CPU tensor the plain twin ``encode_blocks_pairs_plain``
+    (the same function of the same input) runs. The other modes take the
+    "xla" route, as jpegtpu's ``:306-309`` takes its XLA path."""
+    mh, mw, _, n_out = operand_geometry(img, m, bias, subsampling)
+    if subsampling != "420":
+        return encode_blocks_matmul_pairs(img, m, bias, subsampling)
+    if img.device.type == "cpu":
+        return encode_blocks_pairs_plain(img, m, bias, subsampling)
+    padded, m, bias, nrx, n_mcu = _cuda_operands(img, m, bias, mh, mw)
+    if padded.data_ptr() % 16:      # cp.async copies 16 aligned bytes
+        padded = padded.clone()
+    out = torch.empty((n_mcu, n_out), dtype=torch.int32,
+                      device=padded.device)
+    PIXEL_DMA.launch(padded.data_ptr(), m.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), n_mcu, nrx, padded.shape[1] * 3)
     return out
 
 
@@ -182,22 +344,37 @@ def encode_blocks(img: torch.Tensor, tables, subsampling: str) -> torch.Tensor:
     return encode_blocks_batch(img[None], tables, subsampling)
 
 
-def encode_blocks_batch(imgs: torch.Tensor, tables,
-                        subsampling: str) -> torch.Tensor:
+def encode_blocks_batch(imgs: torch.Tensor, tables, subsampling: str,
+                        pixel_path: str = "nat", with_dc: bool = False):
     """u8 [n, H, W, 3] (gray: [n, H, W]) -> int32 [n * nMCU, B*64]: image
     i's MCUs in rows [i * nMCU, (i + 1) * nMCU), each image as
     ``encode_blocks`` codes it. For the fused product each image is padded
     to whole MCUs and the batch is viewed as one image [n * Hp, Wp, 3],
     whose MCUs in raster order are image 0's, then image 1's, and so on: one
-    launch of the pixel kernel for the batch. The staged ops take the batch
-    axis as it is."""
+    launch of a pixel kernel for the batch, on the route ``pixel_path``
+    names ("nat", "dma" or "xla"; jpegtpu's ``_pixel_path_pairs``). The
+    staged ops take the batch axis as it is.
+
+    with_dc: return (coeffs, dc), dc the DC plane of the DC-plane kernel on
+    the fused "nat" route, None on the others (the caller slices
+    coeffs[:, ::64] instead), as jpegtpu's ``with_dc``."""
+    if pixel_path not in PIXEL_PATHS:
+        raise ValueError(f"pixel_path must be 'nat', 'xla' or 'dma', "
+                         f"got {pixel_path!r}")
     h, w = imgs.shape[1], imgs.shape[2]
     if uses_fused(h, w, subsampling):
         padded = ops.pad_to_multiple(imgs, ops.mcu_shape(subsampling))
-        return encode_blocks_pairs(padded.reshape(-1, *padded.shape[2:]),
-                                   tables.m, tables.bias, subsampling)
+        x = padded.reshape(-1, *padded.shape[2:])
+        if pixel_path == "nat":
+            return encode_blocks_pairs(x, tables.m, tables.bias, subsampling,
+                                       with_dc=with_dc)
+        route = (encode_blocks_dma_pairs if pixel_path == "dma"
+                 else encode_blocks_matmul_pairs)
+        y = route(x, tables.m, tables.bias, subsampling)
+        return (y, None) if with_dc else y
     if subsampling == "gray":
         imgs = imgs[..., None]          # [n, H, W, 1]: never read as RGB
     c = ops.encode_blocks(imgs, tables.block_m, tables.block_bias,
                           subsampling)
-    return c.reshape(-1, c.shape[-2] * 64)
+    c = c.reshape(-1, c.shape[-2] * 64)
+    return (c, None) if with_dc else c

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, at small and edge-case shapes: each
 kernel against its plain twin on the same CUDA tensors, and the whole
-encode on the GPU against the port's CPU path, for every mode and restart
-interval. Every test here needs a
+encode on the GPU against the port's CPU path, for every mode, restart
+interval, ``device_stuff``, ``pixel_path`` and ``fuse_bp``. Every test
+here needs a
 CUDA GPU and ``nvcc``; without them each skips. The file imports no JAX,
 so it runs on a machine without it:
 
@@ -13,9 +14,11 @@ import pytest
 import torch
 
 import jpegtpu_torch
+from jpegtpu_torch.core import ops
 from jpegtpu_torch.encoder import EncoderTables
 from jpegtpu_torch.entropy import scan
-from jpegtpu_torch.kernels import compact, entropy_pack, fused_dctq
+from jpegtpu_torch.kernels import (compact, entropy_pack, fused_dctq,
+                                   fused_pipeline)
 
 pytestmark = pytest.mark.gpu
 
@@ -334,3 +337,202 @@ def test_wrappers_raise_on_cpu_operands(dev):
     cls = torch.zeros(6, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="CUDA"):
         entropy_pack.block_pack_mcu_pairs(c, cls, cls, *t.luts())
+
+
+# The kernels of the pixel-path selectors, by name, beside K1 and K2.
+PATH_KERNELS = {"pixel": fused_dctq.PIXEL,
+                "pixel_dc": fused_dctq.PIXEL_DC_PLANE,
+                "pixel_i8": fused_dctq.PIXEL_I8,
+                "pixel_dma": fused_dctq.PIXEL_DMA,
+                "fused_px_bp": fused_pipeline.FUSED_PX_BP,
+                "block_pack": entropy_pack.BLOCK_PACK}
+
+
+def _path_launches(fn):
+    """(fn(), launches of each PATH_KERNELS kernel during it)."""
+    for k in PATH_KERNELS.values():
+        k.launches = 0
+    out = fn()
+    return out, {n: k.launches for n, k in PATH_KERNELS.items()}
+
+
+def _restart_of(restart, w, mode):
+    """The concrete interval of "rows" (MCUs per row) or an integer."""
+    return -(-w // jpegtpu_torch.EncoderConfig(subsampling=mode).mcu_shape[1]
+             ) if restart == "rows" else restart
+
+
+# (mode, image, restart): the fused kernel at one pixel, at widths whose
+# MCU count is no multiple of 8 (37x53: 4 MCUs a row at 4:2:0; 120x200:
+# 13), at 4:4:4 (g = 3, odd), with no restart (every block's first MCU
+# takes its DC predictor from the halo MCU), resets after every MCU, and
+# intervals that fall inside thread blocks (5, 7, rows of 13).
+FUSED_CASES = [("420", "pixel_1x1", 0), ("420", "odd_37x53", "rows"),
+               ("420", "random_120x200", 0), ("420", "random_120x200", 1),
+               ("420", "random_120x200", 5), ("420", "gradient_64x128", 7),
+               ("422", "odd_37x53", 0), ("422", "random_120x200", "rows"),
+               ("422", "flat_255_48x32", 1), ("444", "pixel_1x1", 0),
+               ("444", "odd_37x53", 7), ("444", "random_120x200", 0),
+               ("444", "gradient_64x128", "rows")]
+
+
+@pytest.mark.parametrize("mode,name,restart", FUSED_CASES)
+def test_fused_kernel_matches_twin(dev, mode, name, restart):
+    """K11 against its twin, word for word (zeros past each length too),
+    in one launch."""
+    x = torch.from_numpy(IMAGES[name]()).to(dev)
+    t = EncoderTables.for_quality(90, mode, dev)
+    r = _restart_of(restart, x.shape[1], mode)
+    (mw, ml), launches = _path_launches(
+        lambda: fused_pipeline.fused_pixel_block_pack_pairs(x, t, mode, r))
+    assert launches["fused_px_bp"] == 1 and launches["block_pack"] == 0
+    mw_p, ml_p = fused_pipeline.fused_pixel_block_pack_pairs_plain(x, t,
+                                                                   mode, r)
+    assert torch.equal(ml, ml_p) and torch.equal(mw, mw_p)
+
+
+@pytest.mark.parametrize("mode", ["420", "422", "444"])
+def test_fused_kernel_on_a_batch_view(dev, mode):
+    """Three 37x53 images padded to whole MCUs and viewed as one tall image,
+    resets at every image start (the interval divides each image's MCU
+    count)."""
+    imgs = torch.from_numpy(np.stack([_random(37, 53, s)
+                                      for s in (11, 22, 23)])).to(dev)
+    padded = ops.pad_to_multiple(imgs, ops.mcu_shape(mode))
+    x = padded.reshape(-1, *padded.shape[2:])
+    t = EncoderTables.for_quality(90, mode, dev)
+    my, mx = ops.mcu_grid(37, 53, mode)
+    for r in (mx, my * mx):
+        mw, ml = fused_pipeline.fused_pixel_block_pack_pairs(x, t, mode, r)
+        mw_p, ml_p = fused_pipeline.fused_pixel_block_pack_pairs_plain(
+            x, t, mode, r)
+        assert torch.equal(ml, ml_p) and torch.equal(mw, mw_p)
+
+
+@pytest.mark.parametrize("mode", ["420", "422", "444", "444s"])
+@pytest.mark.parametrize("name", sorted(IMAGES))
+def test_dc_plane_kernel_matches_twin(dev, name, mode):
+    """K12 at every fused geometry: the coefficients of K1's twin and
+    their DC plane, lanes past the MCU's blocks zero."""
+    img = torch.from_numpy(IMAGES[name]()).to(dev)
+    t = EncoderTables.for_quality(90, mode, dev)
+    (got, dc), launches = _path_launches(
+        lambda: fused_dctq.encode_blocks_pairs(img, t.m, t.bias, mode,
+                                               with_dc=True))
+    assert launches["pixel_dc"] == 1 and launches["pixel"] == 0
+    want = fused_dctq.encode_blocks_pairs_plain(img, t.m, t.bias, mode)
+    assert torch.equal(got, want)
+    assert dc.shape == (want.shape[0], 8) and dc.dtype == torch.int32
+    assert torch.equal(dc, fused_dctq.dc_plane(want))
+
+
+def _strip_images():
+    """4:2:0 inputs of the i8 and async-copy kernels: one MCU (16x16, and
+    1x1 padded to it), an MCU count that leaves the last 8-MCU strip short
+    (37x53: 12 MCUs), MCU rows that cross strips (120x200: rows of 13), a
+    tall view of three padded images, and a 32x48 image at an odd
+    address."""
+    out = {n: torch.from_numpy(IMAGES[n]()) for n in
+           ("pixel_1x1", "odd_37x53", "random_120x200")}
+    out["one_mcu_16x16"] = torch.from_numpy(_random(16, 16, 19))
+    imgs = torch.from_numpy(np.stack([_random(37, 53, s)
+                                      for s in (11, 22, 23)]))
+    padded = ops.pad_to_multiple(imgs, (16, 16))
+    out["tall_3x37x53"] = padded.reshape(-1, *padded.shape[2:])
+    flat = torch.from_numpy(_random(1, 1 + 32 * 48, 29).reshape(-1))
+    out["odd_address_32x48"] = flat[1:1 + 32 * 48 * 3].view(32, 48, 3)
+    return out
+
+
+@pytest.mark.parametrize("route", ["i8", "dma"])
+def test_i8_and_dma_kernels_match_twin(dev, route):
+    t = EncoderTables.for_quality(90, "420", dev)
+    fn = {"i8": fused_dctq.encode_blocks_i8_pairs,
+          "dma": fused_dctq.encode_blocks_dma_pairs}[route]
+    for name, img in _strip_images().items():
+        x = img.to(dev)
+        got, launches = _path_launches(lambda: fn(x, t.m, t.bias, "420"))
+        assert launches[f"pixel_{route}"] == 1, name
+        want = fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias)
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("route", ["i8", "dma"])
+@pytest.mark.parametrize("mode", ["422", "444", "444s"])
+def test_i8_and_dma_take_the_matmul_route_off_420(dev, route, mode):
+    """As in jpegtpu, only 4:2:0 has these kernels: the other modes take the
+    float64 matmul ("xla") and launch no pixel kernel."""
+    x = torch.from_numpy(IMAGES["odd_37x53"]()).to(dev)
+    t = EncoderTables.for_quality(90, mode, dev)
+    fn = {"i8": fused_dctq.encode_blocks_i8_pairs,
+          "dma": fused_dctq.encode_blocks_dma_pairs}[route]
+    got, launches = _path_launches(lambda: fn(x, t.m, t.bias, mode))
+    assert not any(launches.values())
+    assert torch.equal(got, fused_dctq.encode_blocks_pairs_plain(
+        x, t.m, t.bias, mode))
+
+
+def _want_path_launches(mode, fused, pixel_path, fuse_bp, pixel_dc):
+    """The launches of PATH_KERNELS that one encode of this configuration
+    makes."""
+    want = dict.fromkeys(PATH_KERNELS, 0)
+    if fuse_bp and mode in fused_pipeline.FUSED_MODES:
+        want["fused_px_bp"] = 1
+        return want
+    want["block_pack"] = 1
+    if fused and pixel_path == "nat":
+        want["pixel_dc" if pixel_dc else "pixel"] = 1
+    elif fused and pixel_path == "dma" and mode == "420":
+        want["pixel_dma"] = 1
+    return want
+
+
+@pytest.mark.parametrize("fuse_bp", [False, True])
+@pytest.mark.parametrize("pixel_path", ["nat", "xla", "dma"])
+@pytest.mark.parametrize("mode", MODES)
+def test_pixel_paths_on_gpu_equal_cpu_path(dev, mode, pixel_path, fuse_bp):
+    """Every pixel_path x fuse_bp x mode on the card: the CPU path's bytes,
+    through the kernels that configuration selects, at restart "rows"
+    and 0."""
+    img = IMAGES["random_120x200"]()
+    if mode == "gray":
+        img = np.ascontiguousarray(img[..., 1])
+    fused = fused_dctq.uses_fused(*img.shape[:2], mode)
+    for restart in ("rows", 0):
+        kw = dict(quality=90, subsampling=mode, restart_interval=restart,
+                  pixel_path=pixel_path, fuse_bp=fuse_bp)
+        got, launches = _path_launches(
+            lambda: jpegtpu_torch.encode(img, device=dev, **kw))
+        assert launches == _want_path_launches(mode, fused, pixel_path,
+                                               fuse_bp, False)
+        assert got == jpegtpu_torch.encode(img, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_pixel_dc_path_on_gpu_equals_cpu_path(dev, mode, monkeypatch):
+    """JPEGTPU_PIXEL_DC's route: the DC-plane kernel on "nat"."""
+    monkeypatch.setattr(fused_dctq, "PIXEL_DC", True)
+    img = IMAGES["odd_37x53"]()
+    if mode == "gray":
+        img = np.ascontiguousarray(img[..., 1])
+    kw = dict(quality=90, subsampling=mode)
+    got, launches = _path_launches(
+        lambda: jpegtpu_torch.encode(img, device=dev, **kw))
+    assert launches == _want_path_launches(
+        mode, fused_dctq.uses_fused(37, 53, mode), "nat", False, True)
+    assert got == jpegtpu_torch.encode(img, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_batch_on_gpu_equals_cpu_path(dev, mode):
+    """encode_batch with fuse_bp: one launch of the fused kernel for the
+    batch (4:4:4s and gray: the split kernels), the CPU path's files."""
+    imgs = [_random(37, 53, s) for s in (11, 22, 23)]
+    if mode == "gray":
+        imgs = [np.ascontiguousarray(im[..., 0]) for im in imgs]
+    kw = dict(quality=90, subsampling=mode, fuse_bp=True)
+    got, launches = _path_launches(
+        lambda: jpegtpu_torch.encode_batch(imgs, device=dev, **kw))
+    assert launches == _want_path_launches(
+        mode, fused_dctq.uses_fused(37, 53, mode), "nat", True, False)
+    assert got == jpegtpu_torch.encode_batch(imgs, device="cpu", **kw)

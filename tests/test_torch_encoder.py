@@ -104,7 +104,7 @@ def test_path_golden_hashes_match_jpegtpu(name):
 def test_import_does_not_load_jax():
     code = ("import sys, jpegtpu_torch, jpegtpu_torch.kernels._build, "
             "jpegtpu_torch.kernels.compact, jpegtpu_torch.native, "
-            "jpegtpu_torch.encoder; "
+            "jpegtpu_torch.kernels.fused_pipeline, jpegtpu_torch.encoder; "
             "assert jpegtpu_torch.encode_batch and "
             "jpegtpu_torch.BatchGeometryError; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
