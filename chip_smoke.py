@@ -1,5 +1,5 @@
-"""GPU smoke test of jpegtpu_torch: build the ten CUDA kernels, hold each
-against its plain torch twin on the card at 3840x2160, drive every encode
+"""GPU smoke test of jpegtpu_torch: build the fourteen CUDA kernels, hold
+each against its plain torch twin on the card at 3840x2160, drive every encode
 path (``jpegtpu_torch.encode``: 4:2:0 with a restart marker every MCU row,
 the main path; 4:2:0 with no restart markers, with a ragged interval and
 with a marker after every MCU; 4:2:2, 4:4:4 (also with a marker after every
@@ -9,7 +9,10 @@ rows and restart 0, 4:2:2 and 4:4:4, ``pixel_path`` "dma" and "xla" and
 ``JPEGTPU_PIXEL_DC``'s route at 4:2:0 rows; the i8-view pixel kernel
 through its entry point; ``jpegtpu_torch.encode_batch`` of 8 x 1920x1080
 with ``device_stuff`` on and off and with ``fuse_bp``) and check its
-bytes, then time everything.
+bytes, drive jpegtpu's oracle tier (``block_pack``, ``mcu_merge``,
+``seg_merge``, ``seg_merge_v2``, ``seg_merge_v3``) at 4:2:0 rows, 4:2:0
+restart 0 and 4:4:4 rows and check each rung's segments against the
+encode path's, then time everything.
 
     python3 chip_smoke.py
 
@@ -283,8 +286,9 @@ def main() -> int:
     from jpegtpu_torch.encoder import (EncoderTables, device_encode,
                                        device_encode_batch, geometry)
     from jpegtpu_torch.entropy import scan
-    from jpegtpu_torch.kernels import (_build, compact, entropy_pack,
-                                       fused_dctq, fused_pipeline)
+    from jpegtpu_torch.kernels import (_build, compact, entropy_oracles,
+                                       entropy_pack, fused_dctq,
+                                       fused_pipeline)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -541,6 +545,15 @@ def main() -> int:
                 "jpegtpu/kernels/compact.py:317"),
                ("compact", compact.COMPACT, "compact.cu",
                 "jpegtpu/kernels/compact.py:44"),
+               ("block_pack_blocks", entropy_pack.PACK_BLOCKS,
+                "block_pack.cu", "jpegtpu/kernels/entropy_pack.py:334"),
+               ("mcu_merge", entropy_oracles.MCU_MERGE, "mcu_merge.cu",
+                "jpegtpu/kernels/entropy_oracles.py:33"),
+               ("seg_merge_window", entropy_oracles.SEG_MERGE_WINDOW,
+                "seg_merge_window.cu",
+                "jpegtpu/kernels/entropy_oracles.py:125"),
+               ("seg_merge_v1", entropy_oracles.SEG_MERGE_V1,
+                "seg_merge_v1.cu", "jpegtpu/kernels/entropy_oracles.py:266"),
                ("fused_px_bp", fused_pipeline.FUSED_PX_BP, "fused_px_bp.cu",
                 "jpegtpu/kernels/fused_pipeline.py:57"),
                ("pixel_dc", fused_dctq.PIXEL_DC_PLANE, "pixel.cu",
@@ -566,7 +579,9 @@ def main() -> int:
                 "block_pack": int(not fuse), "seg_merge": 1,
                 "stuff": int(ds and ns > 1),
                 "stuff_chunks": int(ds and ns == 1),
-                "compact": int(not ds), "fused_px_bp": int(fuse),
+                "compact": int(not ds), "block_pack_blocks": 0,
+                "mcu_merge": 0, "seg_merge_window": 0, "seg_merge_v1": 0,
+                "fused_px_bp": int(fuse),
                 "pixel_dc": int(split_px and route == "nat" and dc),
                 "pixel_i8": 0,
                 "pixel_dma": int(split_px and route == "dma" and sub == "420")}
@@ -696,6 +711,94 @@ def main() -> int:
               f"encodes; {bmy - 1} RST markers in order in each; file 0 "
               f"sha256 {digest} (golden)")
 
+    # The oracle ladder, jpegtpu's test-oracle tier (block_pack, mcu_merge,
+    # seg_merge v1, seg_merge_v2, seg_merge_v3), through its entry points on
+    # three 4K inputs: 4:2:0 rows, 4:2:0 restart 0 (one segment of 194,400
+    # blocks) and 4:4:4 rows (g = 3), each run with the launch counts set to
+    # 0 just before it and read just after. Then each of K7-K10 against its
+    # twin on the inputs it had in that run, K8 of K7 against K2's MCU
+    # streams, and each rung's segments against the encode path's K2 -> K3
+    # segments: the same bits, and the same words through the padded byte.
+    def ladder(c, k, d, ns, mps, g, w_cap):
+        bw_, bl_ = entropy_pack.block_pack(c.reshape(-1, 64), k, d)
+        return bw_, bl_, entropy_pack.mcu_merge(bw_, bl_, g), {
+            "v1": entropy_pack.seg_merge(bw_, bl_, ns, mps * g, w_cap),
+            "v2": entropy_pack.seg_merge_v2(bw_, bl_, ns, mps * g, w_cap, g),
+            "v3": entropy_pack.seg_merge_v3(bw_, bl_, ns, mps * g, w_cap,
+                                            g)[:2]}
+
+    c444 = fused_dctq.encode_blocks_pairs(x, tabs["444"].m, tabs["444"].bias,
+                                          "444")
+    ladder_inputs = {"420 rows": (coeffs, "420", restart),
+                     "420 restart 0": (coeffs, "420", 0),
+                     "444 rows": (c444, "444", ops.mcu_grid(h, w, "444")[1])}
+    want = dict.fromkeys(launches, 0)
+    want.update(block_pack_blocks=1, mcu_merge=3, seg_merge_window=1,
+                seg_merge_v1=1, seg_merge=1)
+    oracle_names = ("block_pack_blocks", "mcu_merge", "seg_merge_window",
+                    "seg_merge_v1")
+    errs.update(dict.fromkeys(oracle_names, 0))
+    lad = {}                    # the 420 rows and restart-0 runs, for timing
+    for label, (c, sub, r) in ladder_inputs.items():
+        n_luma = EncoderConfig(subsampling=sub).n_luma
+        nm, g = c.shape[0], c.shape[1] // 64
+        ns, mps = geometry(nm, r)
+        d = scan.dc_diffs_from_dc(c[:, ::64], n_luma, r).reshape(-1)
+        k = entropy_pack.block_classes(nm, g, n_luma, dev)
+        pw, pml = entropy_pack.block_pack_mcu_pairs(c, k, d, *luts)
+        psw, psb = entropy_pack.seg_merge_mcu(pw, pml, ns, mps)
+        w_cap = entropy_pack.segment_words(ns, mps, pw.shape[1])
+        (bw, bl, (mw8, ml8), rungs), counts = counted(
+            lambda: ladder(c, k, d, ns, mps, g, w_cap))
+        print(f"[ladder] {w}x{h} q{QUALITY} {label}: {nm * g} blocks in {ns} "
+              f"segments, w_cap {w_cap}, launches {counts}")
+        if counts != want:
+            raise AssertionError(f"ladder {label}: launches {counts}, want "
+                                 f"{want}")
+        checks = {
+            "block_pack_blocks": (
+                f"K7 block pack {label}: lens {tuple(bl.shape)} + words "
+                f"{tuple(bw.shape)}", (bw, bl),
+                entropy_pack.block_pack_plain(c.reshape(-1, 64), k, d,
+                                              *luts)),
+            "mcu_merge": (
+                f"K8 MCU merge {label}: mlens {tuple(ml8.shape)} + words "
+                f"{tuple(mw8.shape)}", (mw8, ml8),
+                entropy_oracles.mcu_merge_plain(bw, bl, g, mw8.shape[1])),
+            "seg_merge_window": (
+                f"K9 segment merge v2 {label}: seg_bits + words "
+                f"{tuple(rungs['v2'][0].shape)}", rungs["v2"],
+                entropy_oracles.seg_merge_window_plain(
+                    mw8, ml8, ns, rungs["v2"][0].shape[1])),
+            "seg_merge_v1": (
+                f"K10 segment merge v1 {label}: seg_bits + words "
+                f"{tuple(rungs['v1'][0].shape)}", rungs["v1"],
+                entropy_oracles.seg_merge_plain(bw, bl, ns,
+                                                rungs["v1"][0].shape[1]))}
+        for n, (what, got, twin) in checks.items():
+            (n0, e0), (n1, e1) = diff(got[0], twin[0]), diff(got[1], twin[1])
+            errs[n] = max(errs[n], e0, e1)
+            report(what, n0 + n1, max(e0, e1))
+        del checks
+        kw = pw.shape[1]
+        (n0, e0), (n1, e1) = diff(ml8, pml), diff(mw8[:, :kw], pw)
+        n2 = int(mw8[:, kw:].count_nonzero())
+        report(f"K8 of K7 against K2's MCU streams {label}: mlens, the "
+               f"first {kw} words, {n2} nonzero words past them", n0 + n1 + n2,
+               max(e0, e1))
+        nw = int(-(-psb.to(torch.int64).max() // 32))
+        for rung, (rw, rb) in rungs.items():
+            (n0, e0), (n1, e1) = diff(rb, psb), diff(rw[:, :nw], psw[:, :nw])
+            report(f"ladder {rung} rung {label} against K2 -> K3: seg_bits + "
+                   f"the first {nw} words of {ns} segments", n0 + n1,
+                   max(e0, e1))
+        if sub == "420":
+            lad[r] = dict(bw=bw, bl=bl, mw8=mw8, ml8=ml8, ns=ns, mps=mps,
+                          w_cap=w_cap, sb=psb,
+                          v2_words=rungs["v2"][0].shape[1])
+        del pw, psw, rungs
+    del c444
+
     # 5. Golden files from jpegtpu.
     gold = jpegtpu_torch.encode(golden_image(), quality=QUALITY,
                                 subsampling="420")
@@ -786,6 +889,28 @@ def main() -> int:
             lambda: fused_dctq.encode_blocks_pairs_plain(x, tables.m,
                                                          tables.bias)),
     }
+    # K7-K10 on the oracle ladder's 4:2:0 rows inputs.
+    lr, l0 = lad[restart], lad[0]
+    blocks = coeffs.reshape(-1, 64)
+    pairs.update({
+        "block_pack_blocks": (
+            lambda: entropy_pack.block_pack(blocks, cls, dcd),
+            lambda: entropy_pack.block_pack_plain(blocks, cls, dcd, *luts)),
+        "mcu_merge": (
+            lambda: entropy_pack.mcu_merge(lr["bw"], lr["bl"], 6),
+            lambda: entropy_oracles.mcu_merge_plain(
+                lr["bw"], lr["bl"], 6, lr["mw8"].shape[1])),
+        "seg_merge_window": (
+            lambda: entropy_oracles.seg_merge_window(
+                lr["mw8"], lr["ml8"], lr["ns"], lr["mps"], lr["v2_words"]),
+            lambda: entropy_oracles.seg_merge_window_plain(
+                lr["mw8"], lr["ml8"], lr["ns"], lr["v2_words"])),
+        "seg_merge_v1": (
+            lambda: entropy_pack.seg_merge(lr["bw"], lr["bl"], lr["ns"],
+                                           lr["mps"] * 6, lr["w_cap"]),
+            lambda: entropy_oracles.seg_merge_plain(
+                lr["bw"], lr["bl"], lr["ns"], -(-lr["w_cap"] // 128) * 128)),
+    })
     for sub in ("422", "444", "444s"):
         t = tabs[sub]
         pairs[f"pixel {sub}"] = (
@@ -815,6 +940,25 @@ def main() -> int:
     line("stuff.cu (one block per segment) on the restart-0 segment",
          time_ms(lambda: compact.compact_segments_stuffed_grouped(
              sw0, sb0, 0)))
+    # K7-K10 alone (profiler) on the ladder's 4:2:0 rows inputs, then K9
+    # and K10 on the restart-0 segment, where one thread block walks all
+    # 32,400 MCUs (194,400 blocks): wrapper (CUDA events) and kernel alone.
+    oracle_keys = {"block_pack_blocks": "::block_pack_kernel(",
+                   "mcu_merge": "::mcu_merge_kernel(",
+                   "seg_merge_window": "::seg_merge_window_kernel(",
+                   "seg_merge_v1": "::seg_merge_v1_kernel("}
+    for n, key in oracle_keys.items():
+        print(f"[time] {n} kernel alone (profiler), oracle ladder 420 rows "
+              f"{w}x{h}: {kernel_device_ms(pairs[n][0], key)} ms  [{card}]")
+    one_seg = {
+        "seg_merge_window": lambda: entropy_oracles.seg_merge_window(
+            l0["mw8"], l0["ml8"], 1, l0["mps"], l0["v2_words"]),
+        "seg_merge_v1": lambda: entropy_pack.seg_merge(
+            l0["bw"], l0["bl"], 1, l0["mps"] * 6, l0["w_cap"])}
+    for n, fn in one_seg.items():
+        print(f"[time] {n} on the restart-0 segment: wrapper "
+              f"{time_ms(fn):.4f} ms, kernel alone (profiler) "
+              f"{kernel_device_ms(fn, oracle_keys[n])} ms  [{card}]")
 
     # K6 on its three segment sets: wrapper with glue (CUDA events), the
     # kernel alone (profiler) and its bound (the valid bytes read once and
@@ -1012,6 +1156,21 @@ def main() -> int:
         "stuff_chunks": nbytes0 + n_chunks * 12 + 16 + total0,
         "compact": 2 * nbytes_rows + n_seg * 12,
     }
+    # K7-K10 on the ladder's 4:2:0 rows inputs: the valid block, MCU and
+    # segment words with their lengths, as K2's and K3's.
+    n_blocks = lr["bl"].numel()
+    valid_block_words = int(((lr["bl"].to(torch.int64) + 31) // 32).sum())
+    valid_seg_words = int(((sb.to(torch.int64) + 31) // 32).sum())
+    bytes_moved.update({
+        "block_pack_blocks": ((blocks.numel() + cls.numel() + dcd.numel() +
+                               valid_block_words + n_blocks) * 4 +
+                              sum(t.numel() * 4 for t in luts)),
+        "mcu_merge": (valid_block_words + n_blocks + valid_mcu_words +
+                      n_mcu) * 4,
+        "seg_merge_window": (valid_mcu_words + n_mcu + valid_seg_words +
+                             n_seg) * 4,
+        "seg_merge_v1": (valid_block_words + n_blocks + valid_seg_words +
+                         n_seg) * 4})
     flops = {}
     for sub in ("420", "422", "444", "444s"):
         t = tabs[sub]

@@ -42,7 +42,8 @@ def pack_words(lens: torch.Tensor, bits: torch.Tensor, n_seg: int,
     lens/bits: [n_seg * slots_per_seg] (any shape with that many elements),
     in stream order; bits right-aligned in the low `lens` bits, lens <= 32.
     Returns (words [n_seg, w_cap] int64 holding u32, seg_bits [n_seg]
-    int64); the caller sizes w_cap for the longest segment.
+    int64). A word past its segment's w_cap words is dropped; seg_bits
+    still counts every bit.
     """
     dev = lens.device
     l = lens.reshape(n_seg, -1).to(torch.int64)
@@ -62,21 +63,21 @@ def pack_words(lens: torch.Tensor, bits: torch.Tensor, n_seg: int,
     lo = torch.where(rem > 0, lo, 0)
 
     seg_base = (torch.arange(n_seg, device=dev) * w_cap)[:, None]
-    words = torch.zeros(n_seg * w_cap + 1, dtype=torch.int64, device=dev)
-    # An empty slot, or the spill word of a slot that has none, may index
-    # one word past its segment: it adds 0 there (the last segment's goes
-    # to a spare word, dropped below).
-    words.index_add_(0, torch.clamp(seg_base + w_idx, max=n_seg * w_cap)
-                     .reshape(-1), hi.reshape(-1))
-    words.index_add_(0, torch.clamp(seg_base + w_idx + 1,
-                                    max=n_seg * w_cap).reshape(-1),
-                     lo.reshape(-1))
+    spare = n_seg * w_cap
+    words = torch.zeros(spare + 1, dtype=torch.int64, device=dev)
+    # A word past its segment (an empty slot's, the spill word of a slot
+    # that has none, or one that overflows w_cap) goes to a spare word,
+    # dropped below.
+    for w, part in ((w_idx, hi), (w_idx + 1, lo)):
+        words.index_add_(0, torch.where(w < w_cap, seg_base + w, spare)
+                         .reshape(-1), part.reshape(-1))
     return words[:-1].reshape(n_seg, w_cap), seg_bits
 
 
 def pad_ones(words: torch.Tensor, seg_bits: torch.Tensor) -> torch.Tensor:
     """1-pad each segment's final partial byte (ITU-T T.81 F.1.2.3), in
-    place: words [n_seg, W] int64 holding u32, zero past seg_bits."""
+    place: words [n_seg, W] int64 holding u32, zero past seg_bits. A byte
+    past the W words is not padded."""
     n_seg, w_cap = words.shape
     tail = seg_bits & 7
     padb = (8 - tail) & 7
@@ -84,7 +85,8 @@ def pad_ones(words: torch.Tensor, seg_bits: torch.Tensor) -> torch.Tensor:
     padval = ((1 << padb) - 1) << (32 - b_in - padb)
     col = torch.clamp(seg_bits >> 5, max=w_cap - 1)
     rows = torch.arange(n_seg, device=words.device)
-    words[rows, col] += torch.where(padb > 0, padval, 0)
+    words[rows, col] += torch.where((padb > 0) & (seg_bits >> 5 < w_cap),
+                                    padval, 0)
     return words
 
 

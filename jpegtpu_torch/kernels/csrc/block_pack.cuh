@@ -1,10 +1,11 @@
 // Symbolize and pack one 64-coefficient block with one warp, shared by the
-// block-pack kernel (block_pack.cu) and the fused pixel + block-pack kernel
-// (fused_px_bp.cu). Lane l holds slots l and l+32 of the block; a ballot
-// gives the block's nonzero mask, count-leading-zeros gives each slot's
-// previous nonzero and the last nonzero, a warp scan gives each symbol's
-// bit offset, and shared-memory atomicOr places the bits (two symbols can
-// share a word). Streams are big-endian u32 words, MSB first.
+// block-pack kernels (block_pack.cu: per MCU, K2, and per block, K7) and
+// the fused pixel + block-pack kernel (fused_px_bp.cu). Lane l holds slots
+// l and l+32 of the block; a ballot gives the block's nonzero mask,
+// count-leading-zeros gives each slot's previous nonzero and the last
+// nonzero, a warp scan gives each symbol's bit offset, and shared-memory
+// atomicOr places the bits (two symbols can share a word). Streams are
+// big-endian u32 words, MSB first.
 //
 // Symbolization is exactly jpegtpu_torch.entropy.scan.block_symbols
 // (jpegtpu/entropy/scan.py:97-159): ZRL only when k < last_nz and
@@ -15,6 +16,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "merge_common.cuh"   // warp_exclusive_scan, warp_sum
 
 namespace jt {
 
@@ -57,22 +60,6 @@ __device__ __forceinline__ void put_bits(uint32_t* buf, int off, uint32_t bits,
     atomicOr(buf + w, bits >> rem);
     atomicOr(buf + w + 1, bits << (32 - rem));
   }
-}
-
-__device__ __forceinline__ int warp_exclusive_scan(int x, int lane) {
-  int inc = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, inc, d);
-    if (lane >= d) inc += y;
-  }
-  return inc - x;
-}
-
-__device__ __forceinline__ int warp_sum(int x) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(0xffffffffu, x, d);
-  return x;
 }
 
 // Code and length of slot k of a block with coefficient c.

@@ -6,15 +6,16 @@
 // through a register window that it flushes in 1024-word frames, because its
 // grid runs in order. Here every MCU is independent: the glue has already
 // computed each MCU's exclusive bit offset in its segment, so one warp per
-// MCU funnel-shifts the MCU's words by (off & 31) and ORs them into the
-// segment at word off >> 5. Bit ranges of different MCUs are disjoint, so
-// atomicOr composes them in any order (jpegtpu/entropy/assemble.py:11-13).
-// The output must be zero-filled before the launch.
+// MCU places the MCU's words at that offset (merge_common.cuh: a funnel
+// shift across each word pair, then atomicOr, since bit ranges of different
+// MCUs are disjoint). The output must be zero-filled before the launch.
 //
-// Bound: global atomics, two per MCU word with a nonzero part.
+// Bound: global atomics, one per output word with a nonzero part.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "merge_common.cuh"
 
 namespace {
 
@@ -33,30 +34,13 @@ seg_merge_mcu_kernel(const int32_t* __restrict__ mwords,
   const long long seg = mcu / mps;
   const int len = mlens[mcu];
   const int o = off[mcu];
-  const int s = o & 31;
-  const int nw = (len + 31) >> 5;
-  unsigned* dst = reinterpret_cast<unsigned*>(out) + seg * seg_words + (o >> 5);
-  const uint32_t* src =
-      reinterpret_cast<const uint32_t*>(mwords) + mcu * mcu_words;
-  for (int j = lane; j < nw; j += 32) {
-    uint32_t w = src[j];
-    const int tail = len - 32 * j;    // valid bits in this word if < 32
-    if (tail < 32) w &= ~0u << (32 - tail);
-    if (w == 0) continue;
-    atomicOr(dst + j, w >> s);
-    if (s && (w << (32 - s))) atomicOr(dst + j + 1, w << (32 - s));
-  }
+  uint32_t* seg_out = reinterpret_cast<uint32_t*>(out) + seg * seg_words;
+  jt::place_stream(seg_out, seg_words, o,
+                   reinterpret_cast<const uint32_t*>(mwords) + mcu * mcu_words,
+                   mcu_words, len, lane);
   // The last MCU of a segment 1-pads the segment's final partial byte.
-  if (lane == 0 && mcu % mps == mps - 1) {
-    const int total = o + len;
-    const int padb = (8 - (total & 7)) & 7;
-    if (padb) {
-      const int b_in = total & 31;
-      unsigned* seg_out = reinterpret_cast<unsigned*>(out) + seg * seg_words;
-      atomicOr(seg_out + (total >> 5),
-               ((1u << padb) - 1u) << (32 - b_in - padb));
-    }
-  }
+  if (lane == 0 && mcu % mps == mps - 1)
+    jt::pad_ones(seg_out, seg_words, (long long)o + len);
 }
 
 }  // namespace

@@ -1,0 +1,168 @@
+"""Oracle-tier merges: block streams -> MCU streams -> segment streams
+(counterpart of ``jpegtpu.kernels.entropy_oracles``).
+
+jpegtpu keeps these earlier generations as the bit-exactness ladder its
+tests climb (block pack -> v1 -> v2 -> v3 -> the fused main path); the port
+keeps them with jpegtpu's signatures and output shapes:
+
+* ``mcu_merge`` joins g block streams into one MCU stream
+  (``csrc/mcu_merge.cu``, the port of ``_mcu_merge_kernel``, K8);
+* ``seg_merge_v2`` is ``mcu_merge`` and then a serial append of each
+  segment's MCU streams (``csrc/seg_merge_window.cu``, the port of
+  ``_seg_merge_window_kernel``, K9);
+* ``seg_merge`` (v1) appends each segment's block streams one by one
+  (``csrc/seg_merge_v1.cu``, the port of ``_seg_merge_kernel``, K10).
+
+On CUDA tensors each wrapper launches its kernel; on CPU tensors it runs
+its plain twin (``*_plain``), the int64 scatter-add join of
+``entropy_pack.join_streams_plain``. Stream bits past a row's length are
+ignored. A segment that outgrows its output row keeps its true bit count
+and loses the words past the row, kernel and twin alike (jpegtpu clamps
+v2 to its last frame and lets v1 write past its buffer: no contract).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from jpegtpu_torch.entropy import assemble
+from jpegtpu_torch.kernels import _build, entropy_pack
+
+# K9's and K10's arguments: rows, lens, out, seg_bits, then n_seg, streams
+# per segment, words per row and words per segment.
+_ROWS_ARGS = [_build.PTR, _build.PTR, _build.PTR, _build.PTR,
+              _build.I64, _build.I64, _build.I32, _build.I64]
+
+MCU_MERGE = _build.Kernel("jt_mcu_merge", [
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # words, lens, out x2
+    _build.I64, _build.I32, _build.I32, _build.I32])  # n_mcu, g, row, mcu
+SEG_MERGE_WINDOW = _build.Kernel("jt_seg_merge_window", _ROWS_ARGS)
+SEG_MERGE_V1 = _build.Kernel("jt_seg_merge_v1", _ROWS_ARGS)
+
+# Shared memory one thread block can hold on the H100 (with the opt-in):
+# K8 stages one MCU row there.
+_SMEM_BYTES = 232448
+
+
+def default_chunks(g: int) -> int:
+    """128-word chunks of an MCU row of g blocks at the worst case
+    (``entropy_pack.mcu_words``), jpegtpu's default for ``mcu_merge``."""
+    return -(-entropy_pack.mcu_words(g) // 128)
+
+
+def _int32_rows(words: torch.Tensor, lens: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows [n, W] and lengths [n] as contiguous int32 CUDA tensors."""
+    words = words.to(torch.int32).contiguous()
+    lens = lens.reshape(-1).to(torch.int32).contiguous()
+    _build.check_cuda(words, lens)
+    if words.dim() != 2 or lens.numel() != words.shape[0]:
+        raise ValueError(f"want stream rows [n, W] and lengths [n], got "
+                         f"{tuple(words.shape)} and {tuple(lens.shape)}")
+    return words, lens
+
+
+def mcu_merge_plain(words: torch.Tensor, lens: torch.Tensor, g: int,
+                    width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the MCU-merge kernel: ``join_streams_plain`` of each
+    g consecutive rows into a row of `width` words."""
+    mwords, mlens = entropy_pack.join_streams_plain(
+        words, lens, words.shape[0] // g, width)
+    return assemble.to_i32_bits(mwords), mlens.to(torch.int32)
+
+
+def mcu_merge(words: torch.Tensor, lens: torch.Tensor, g: int,
+              chunks: int | None = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block streams [N, W] int32 (+ bit lengths [N]) -> (MCU streams
+    [N/g, chunks*128] int32, lengths [N/g] int32): each g consecutive
+    streams joined bit-contiguously, zero past the length. chunks defaults
+    to the worst case (``default_chunks``); a smaller one (from
+    ``mcu_capacity``) drops the words past chunks*128 while the length
+    stays the full sum, as in jpegtpu, whose callers check the lengths
+    against the capacity."""
+    n = words.shape[0]
+    if g <= 0 or n % g:
+        raise ValueError(f"mcu_merge: {n} blocks is not whole MCUs of {g}")
+    width = 128 * (default_chunks(g) if chunks is None else chunks)
+    if words.device.type == "cpu":
+        return mcu_merge_plain(words, lens, g, width)
+    if width * 4 > _SMEM_BYTES:
+        raise ValueError(f"mcu_merge: an MCU row of {width} words does not "
+                         f"fit one thread block's shared memory")
+    words, lens = _int32_rows(words, lens)
+    nm = n // g
+    mwords = torch.empty((nm, width), dtype=torch.int32, device=words.device)
+    mlens = torch.empty((nm,), dtype=torch.int32, device=words.device)
+    MCU_MERGE.launch(words.data_ptr(), lens.data_ptr(), mwords.data_ptr(),
+                     mlens.data_ptr(), nm, g, words.shape[1], width)
+    return mwords, mlens
+
+
+def _append(kernel: _build.Kernel, plain, rows: torch.Tensor,
+            lens: torch.Tensor, n_seg: int, per_seg: int, width: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9 or K10 on CUDA tensors (one thread block per segment of per_seg
+    rows, into a zero-filled [n_seg, width] output), their twin `plain` on
+    CPU tensors."""
+    if per_seg <= 0 or rows.shape[0] != n_seg * per_seg:
+        raise ValueError(f"{rows.shape[0]} streams is not {n_seg} segments "
+                         f"of {per_seg}")
+    if rows.device.type == "cpu":
+        return plain(rows, lens, n_seg, width)
+    rows, lens = _int32_rows(rows, lens)
+    if per_seg * 32 * rows.shape[1] >= 1 << 31:
+        # The kernel counts a segment's bits in int32: read the sums back
+        # (a device sync) only where rows this long could reach 2^31.
+        most = int(lens.view(n_seg, per_seg).sum(1, dtype=torch.int64).max())
+        if most >= 1 << 31:
+            raise ValueError(f"a segment holds {most} bits; a segment must "
+                             f"hold fewer than 2^31")
+    out = torch.zeros((n_seg, width), dtype=torch.int32, device=rows.device)
+    seg_bits = torch.empty((n_seg,), dtype=torch.int32, device=rows.device)
+    kernel.launch(rows.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                  seg_bits.data_ptr(), n_seg, per_seg, rows.shape[1], width)
+    return out, seg_bits
+
+
+# The plain twins of K9 and K10: (rows, lens, n_seg, width) -> the rows
+# joined into n_seg segments of `width` words, 1-padded.
+seg_merge_window_plain = seg_merge_plain = entropy_pack.merge_segments_plain
+
+
+def seg_merge_window(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
+                     mps: int, width: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MCU streams [n_seg*mps, W] int32 (+ lengths) -> (segment streams
+    [n_seg, width] int32, true seg_bits [n_seg] int32): segment s appends
+    MCUs s*mps .. s*mps+mps-1 and 1-pads its last byte (K9)."""
+    return _append(SEG_MERGE_WINDOW, seg_merge_window_plain, mwords, mlens,
+                   n_seg, mps, width)
+
+
+def seg_merge_v2(words: torch.Tensor, lens: torch.Tensor, n_seg: int,
+                 bps: int, w_cap: int, blocks_per_mcu: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block streams [n_seg*bps, W] (+ lengths) -> (segment streams
+    [n_seg, frames*1024] int32, seg_bits [n_seg] int32) with frames =
+    ceil(w_cap/1024) + 1: ``mcu_merge`` at the worst-case chunks, then the
+    serial append of each segment's MCUs (jpegtpu's ``seg_merge_v2``)."""
+    g = blocks_per_mcu
+    if g <= 0 or bps % g:
+        raise ValueError(f"seg_merge_v2: {bps} blocks a segment is not "
+                         f"whole MCUs of {g}")
+    mwords, mlens = mcu_merge(words, lens, g)
+    frames = -(-w_cap // 1024) + 1
+    return seg_merge_window(mwords, mlens, n_seg, bps // g, frames * 1024)
+
+
+def seg_merge(words: torch.Tensor, lens: torch.Tensor, n_seg: int, bps: int,
+              w_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block streams [n_seg*bps, W] int32 (+ lengths) -> (segment streams
+    [n_seg, rows*128] int32, true seg_bits [n_seg] int32) with rows =
+    ceil(w_cap/128): segment s appends blocks s*bps .. s*bps+bps-1 one by
+    one and 1-pads its last byte (jpegtpu's ``seg_merge``, v1)."""
+    return _append(SEG_MERGE_V1, seg_merge_plain, words, lens, n_seg, bps,
+                   -(-w_cap // 128) * 128)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, at small and edge-case shapes: each
 kernel against its plain twin on the same CUDA tensors, and the whole
 encode on the GPU against the port's CPU path, for every mode, restart
-interval, ``device_stuff``, ``pixel_path`` and ``fuse_bp``. Every test
-here needs a
+interval, ``device_stuff``, ``pixel_path`` and ``fuse_bp``, and the
+oracle tier's kernels (K7-K10) against their twins and against the main
+path's segments. Every test here needs a
 CUDA GPU and ``nvcc``; without them each skips. The file imports no JAX,
 so it runs on a machine without it:
 
@@ -17,8 +18,8 @@ import jpegtpu_torch
 from jpegtpu_torch.core import ops
 from jpegtpu_torch.encoder import EncoderTables
 from jpegtpu_torch.entropy import scan
-from jpegtpu_torch.kernels import (compact, entropy_pack, fused_dctq,
-                                   fused_pipeline)
+from jpegtpu_torch.kernels import (compact, entropy_oracles, entropy_pack,
+                                   fused_dctq, fused_pipeline)
 
 pytestmark = pytest.mark.gpu
 
@@ -536,3 +537,182 @@ def test_fused_batch_on_gpu_equals_cpu_path(dev, mode):
     assert launches == _want_path_launches(
         mode, fused_dctq.uses_fused(37, 53, mode), "nat", True, False)
     assert got == jpegtpu_torch.encode_batch(imgs, device="cpu", **kw)
+
+
+# --- The oracle tier: K7 (per-block pack), K8 (MCU merge), K9 (segment
+# merge v2), K10 (segment merge v1), each against its twin on the same CUDA
+# tensors, with its launch count.
+
+ORACLE_KERNELS = (entropy_pack.PACK_BLOCKS, entropy_oracles.MCU_MERGE,
+                  entropy_oracles.SEG_MERGE_WINDOW,
+                  entropy_oracles.SEG_MERGE_V1, entropy_pack.SEG_MERGE)
+
+
+def _oracle_launches(fn):
+    """(fn(), launches of K7, K8, K9, K10, K3 during it)."""
+    for k in ORACLE_KERNELS:
+        k.launches = 0
+    out = fn()
+    return out, [k.launches for k in ORACLE_KERNELS]
+
+
+def _oracle_streams(n, row_words, seed, dev):
+    """n stream rows of random words with random lengths in [0, 32 *
+    row_words] (some 0, whole words, full rows) and random bits past each
+    length, which every merge ignores."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, (n, row_words), dtype=np.uint64)
+    lens = rng.integers(0, 32 * row_words + 1, n)
+    lens[::11] = 0
+    lens[1::13] = 32 * rng.integers(0, row_words + 1, len(lens[1::13]))
+    lens[2::17] = 32 * row_words
+    return (torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("n", [1, 13, 1027, 20003])
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_block_pack_kernel_matches_twin(dev, kind, n):
+    """K7 at block counts that fill no whole thread block, and past one
+    sweep of its grid (8 blocks of 8 warps per SM)."""
+    c = torch.from_numpy(_coeffs(kind, -(-n // 6), n)).to(dev)
+    c = c.reshape(-1, 64)[:n]
+    rng = np.random.default_rng(n)
+    cls = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
+    dcd = torch.from_numpy(rng.integers(-2047, 2048, n).astype(np.int32)
+                           ).to(dev)
+    (w, l), launches = _oracle_launches(
+        lambda: entropy_pack.block_pack(c, cls, dcd))
+    assert launches == [1, 0, 0, 0, 0]
+    w_p, l_p = entropy_pack.block_pack_plain(
+        c, cls, dcd, *entropy_pack.standard_luts(dev))
+    assert torch.equal(l, l_p) and torch.equal(w, w_p)
+
+
+# (g, MCUs, chunks): g = 1 and 3, ragged thread blocks, budget-sized rows
+# that truncate, more blocks than a warp's lanes (200) and a row past 48 KB
+# of shared memory (1000 blocks: 52,096 words).
+MCU_CASES = [(1, 7, None), (3, 5, None), (6, 33, None), (3, 9, "budget"),
+             (6, 33, "budget"), (200, 3, None), (1000, 2, None)]
+
+
+@pytest.mark.parametrize("g,n_mcu,chunks", MCU_CASES)
+def test_mcu_merge_kernel_matches_twin(dev, g, n_mcu, chunks):
+    words, lens = _oracle_streams(g * n_mcu, entropy_pack.BLOCK_WORDS,
+                                  g + n_mcu, dev)
+    if chunks == "budget":
+        chunks = entropy_pack.mcu_capacity(g, 384)[0]
+    (mw, ml), launches = _oracle_launches(
+        lambda: entropy_oracles.mcu_merge(words, lens, g, chunks))
+    assert launches == [0, 1, 0, 0, 0]
+    width = mw.shape[1]
+    mw_p, ml_p = entropy_oracles.mcu_merge_plain(words, lens, g, width)
+    assert torch.equal(ml, ml_p) and torch.equal(mw, mw_p)
+    if chunks is not None:
+        assert bool((ml > 32 * width).any()), "pick truncating inputs"
+
+
+# (n_seg, streams per segment, w_cap): one stream per segment, restart
+# rows, a 32,400-MCU single segment (194,400 blocks for v1), and rows too
+# short for their segments.
+SEGMENT_CASES = {"one_per_segment": (50, 1, 64), "rows": (7, 45, None),
+                 "single_32400_mcus": (1, 32400, None),
+                 "overflowing_w_cap": (5, 40, 300)}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+@pytest.mark.parametrize("rung", ["v1", "v2"])
+def test_segment_merge_kernels_match_twins(dev, rung, case):
+    """K10 (v1, over 56-word block rows) and K9 (v2, over K8's MCU rows)
+    against their twins: true seg_bits, and the same words, 1-pad and
+    dropped words past the row included."""
+    n_seg, mps, w_cap = SEGMENT_CASES[case]
+    g = 6
+    words, lens = _oracle_streams(n_seg * mps * g, entropy_pack.BLOCK_WORDS,
+                                  mps, dev)
+    if w_cap is None:
+        w_cap = mps * g * entropy_pack.BLOCK_WORDS + 2
+    if rung == "v1":
+        (sw, sb), launches = _oracle_launches(
+            lambda: entropy_oracles.seg_merge(words, lens, n_seg, mps * g,
+                                              w_cap))
+        assert launches == [0, 0, 0, 1, 0]
+        sw_p, sb_p = entropy_oracles.seg_merge_plain(words, lens, n_seg,
+                                                     sw.shape[1])
+    else:
+        (sw, sb), launches = _oracle_launches(
+            lambda: entropy_oracles.seg_merge_v2(words, lens, n_seg, mps * g,
+                                                 w_cap, g))
+        assert launches == [0, 1, 1, 0, 0]
+        mw, ml = entropy_oracles.mcu_merge_plain(
+            words, lens, g, 128 * entropy_oracles.default_chunks(g))
+        sw_p, sb_p = entropy_oracles.seg_merge_window_plain(mw, ml, n_seg,
+                                                            sw.shape[1])
+    assert torch.equal(sb, sb_p) and torch.equal(sw, sw_p)
+    if case == "overflowing_w_cap":
+        assert bool((sb > 32 * sw.shape[1]).all()), "pick overflowing rows"
+
+
+@pytest.mark.parametrize("mode,restart", [("420", 5), ("420", 0),
+                                          ("444", 5)])
+def test_oracle_rungs_equal_the_main_path(dev, mode, restart):
+    """K7 -> K10 (v1), K7 -> K8 -> K9 (v2) and K7 -> K8 -> K3 (v3) give
+    the segments of K2 -> K3, and K8 of K7 gives K2's MCU streams."""
+    img = torch.from_numpy(_random(120, 200, 3)).to(dev)
+    t = EncoderTables.for_quality(90, mode, dev)
+    c = fused_dctq.encode_blocks_pairs(img, t.m, t.bias, mode)
+    nm, g = c.shape[0], c.shape[1] // 64
+    n_luma = 4 if mode == "420" else 1
+    mps = restart or nm
+    n_seg = nm // mps
+    c = c[:n_seg * mps]
+    nm = c.shape[0]
+    dcd = scan.dc_diffs_from_dc(c[:, ::64], n_luma, restart).reshape(-1)
+    cls = entropy_pack.block_classes(nm, g, n_luma, dev)
+    mw, ml = entropy_pack.block_pack_mcu_pairs(c, cls, dcd, *t.luts())
+    sw, sb = entropy_pack.seg_merge_mcu(mw, ml, n_seg, mps)
+    (bw, bl), launches = _oracle_launches(
+        lambda: entropy_pack.block_pack(c.reshape(-1, 64), cls, dcd))
+    assert launches == [1, 0, 0, 0, 0]
+    mw8, ml8 = entropy_oracles.mcu_merge(bw, bl, g)
+    assert torch.equal(ml8, ml)
+    assert torch.equal(mw8[:, :mw.shape[1]], mw)
+    assert not bool(mw8[:, mw.shape[1]:].any())
+    w_cap = entropy_pack.segment_words(n_seg, mps, mw.shape[1])
+    rungs, launches = _oracle_launches(lambda: {
+        "v1": entropy_oracles.seg_merge(bw, bl, n_seg, mps * g, w_cap),
+        "v2": entropy_oracles.seg_merge_v2(bw, bl, n_seg, mps * g, w_cap, g),
+        "v3": entropy_pack.seg_merge_v3(bw, bl, n_seg, mps * g, w_cap,
+                                        g)[:2]})
+    assert launches == [0, 2, 1, 1, 1]
+    n = int(-(-sb.max() // 32))
+    for rung, (rw, rb) in rungs.items():
+        assert torch.equal(rb, sb), rung
+        assert torch.equal(rw[:, :n], sw[:, :n]), rung
+
+
+def test_oracle_wrappers_raise_and_never_run_twins(dev, monkeypatch):
+    """A CUDA tensor beside a CPU one, a row too wide for shared memory, or
+    a launcher missing from the library raises; no twin runs."""
+    for name in ("block_pack_plain",):
+        monkeypatch.setattr(entropy_pack, name, None)
+    for name in ("mcu_merge_plain", "seg_merge_window_plain",
+                 "seg_merge_plain"):
+        monkeypatch.setattr(entropy_oracles, name, None)
+    words, lens = _oracle_streams(12, entropy_pack.BLOCK_WORDS, 1, dev)
+    c = torch.zeros((12, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        entropy_pack.block_pack(c, lens.cpu(), lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        entropy_oracles.mcu_merge(words, lens.cpu(), 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        entropy_oracles.seg_merge(words, lens.cpu(), 2, 6, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        entropy_oracles.mcu_merge(words, lens, 12, 500)
+    k = entropy_oracles.SEG_MERGE_WINDOW
+    monkeypatch.setattr(k, "_fn", None)
+    monkeypatch.setattr(k, "symbol", "jt_no_such_launcher")
+    k.launches = 0
+    with pytest.raises(AttributeError, match="jt_no_such_launcher"):
+        entropy_oracles.seg_merge_v2(words, lens, 2, 6, 1024, 6)
+    assert k.launches == 0
