@@ -26,8 +26,10 @@ card's output to jpegtpu's (``tests/test_torch_encoder.py`` and
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +84,9 @@ PROFILED = (("420", "rows", {}), ("420", 0, {}), ("420", 7, {}),
             ("420", 1, {}), ("444", 1, {}), ("420", "rows", {"fuse_bp": True}),
             ("420", "rows", {"pixel_path": "dma"}))
 TIMING_REPS = 20
+# Qualities at which phase 3 holds K1 (every geometry) and K14 against the
+# dense twin.
+PIXEL_QUALITIES = (1, 50, 90, 100)
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float64 FLOP/s (the tensor-core rate, the card's highest for float64).
 HBM_BYTES_PER_S = 3.35e12
@@ -176,6 +181,23 @@ def operator_fmas(m: np.ndarray, subsampling: str) -> int:
     same = (g == g[..., :1, :]).all(axis=3)
     nz = g != 0
     return int(np.where(same, nz[..., 0, :], nz.sum(axis=3)).sum())
+
+
+def ptxas_entries(log: str, names) -> list:
+    """(kernel, "registers, spills, stack") for each kernel in an nvcc
+    -Xptxas -v log whose mangled name holds one of names; the kernel named
+    by its name and template arguments as they appear in the mangled one."""
+    out, lines = [], log.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if not m or not any(n in m.group(1) for n in names):
+            continue
+        name = next(n for n in names if n in m.group(1))
+        args = re.search(name + r"(I\S*?E)E", m.group(1))
+        props = " ".join(x.strip().replace("ptxas info    : ", "")
+                         for x in lines[i + 2:i + 4])
+        out.append((name + (args.group(1) if args else ""), props))
+    return out
 
 
 def card_line() -> str:
@@ -309,10 +331,22 @@ def main() -> int:
     lib = _build.library_path()
     print(f"[build] {lib.name} from {', '.join(_build.SOURCES)} "
           f"in {secs:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
+    build_log = lib.with_suffix(".log").read_text()
+    for line in build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] ptxas: {line.strip()}")
-    _build.library()
+    klib = _build.library()
+    klib.jt_pixel_smem.argtypes = [ctypes.c_int] * 3
+    klib.jt_pixel_smem.restype = klib.jt_pixel_dma_smem.restype = ctypes.c_int
+    klib.jt_pixel_dma_smem.argtypes = []
+    # K1 (four geometries) and K14: registers, spills and shared memory.
+    for kernel, props in ptxas_entries(build_log, ("pixel_mma_kernel",
+                                                   "pixel_dma_kernel")):
+        dims = tuple(int(v) for v in re.findall(r"Li(\d+)E", kernel))
+        smem = (klib.jt_pixel_smem(*dims[:3]) if dims
+                else klib.jt_pixel_dma_smem())
+        print(f"[build] {kernel}: {props}; dynamic shared memory {smem} "
+              f"bytes a block")
 
     # 3. Each kernel against its plain twin, at the paths' shapes.
     h, w = BENCH_SHAPE
@@ -394,14 +428,27 @@ def main() -> int:
     n_bad, errs["pixel"] = diff(coeffs, coeffs_p)
     report(f"K1 pixel 420 coefficients {tuple(coeffs.shape)}", n_bad,
            errs["pixel"])
-    for sub in ("422", "444", "444s"):
-        t = tabs[sub]
-        c_k = fused_dctq.encode_blocks_pairs(x, t.m, t.bias, sub)
-        c_p = fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias, sub)
-        n_bad, e = diff(c_k, c_p)
-        errs["pixel"] = max(errs["pixel"], e)
-        report(f"K1 pixel {sub} coefficients {tuple(c_k.shape)}", n_bad, e)
-        del c_k, c_p
+    # K1's factored tensor-core product in every geometry and K14's
+    # (bulk copies) at 4:2:0, at the qualities PIXEL_QUALITIES, against the
+    # dense twin.
+    errs["pixel_dma"] = 0
+    for q in PIXEL_QUALITIES:
+        for sub in ("420", "422", "444", "444s"):
+            t = (tabs[sub] if q == QUALITY
+                 else EncoderTables.for_quality(q, sub, dev))
+            c_p = fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias, sub)
+            routes = {"K1": (fused_dctq.encode_blocks_pairs, "pixel")}
+            if sub == "420":
+                routes["K14"] = (fused_dctq.encode_blocks_dma_pairs,
+                                 "pixel_dma")
+            for label, (fn, err_key) in routes.items():
+                c_k = fn(x, t.m, t.bias, sub)
+                n_bad, e = diff(c_k, c_p)
+                errs[err_key] = max(errs[err_key], e)
+                report(f"{label} factored pixel {sub} q{q} coefficients "
+                       f"{tuple(c_k.shape)} against the dense twin", n_bad, e)
+                del c_k
+            del c_p
 
     dcd = scan.dc_diffs_from_dc(coeffs[:, ::64], 4, restart).reshape(-1)
     cls = (torch.arange(n_mcu * 6, device=dev) % 6 >= 4).to(torch.int32)
@@ -525,15 +572,10 @@ def main() -> int:
         fused_dctq.pixel_i8_plain(x8, tables.m, tables.bias))
     report(f"K13 i8-view pixel 420 coefficients from the view "
            f"{tuple(x8.shape)}", n_bad, errs["pixel_i8"])
-    n_bad, errs["pixel_dma"] = diff(
-        fused_dctq.encode_blocks_dma_pairs(x, tables.m, tables.bias),
-        coeffs_p)
-    report(f"K14 async-copy pixel 420 coefficients {tuple(coeffs_p.shape)}",
-           n_bad, errs["pixel_dma"])
 
     # 4. Every path end to end, through the public entry point, each with
     # the launch counts set to 0 just before it and read just after.
-    kernels = (("pixel", fused_dctq.PIXEL, "pixel.cu",
+    kernels = (("pixel", fused_dctq.PIXEL, "pixel_mma.cu",
                 "jpegtpu/kernels/fused_dctq.py:388"),
                ("block_pack", entropy_pack.BLOCK_PACK, "block_pack.cu",
                 "jpegtpu/kernels/entropy_pack.py:619"),
@@ -929,7 +971,7 @@ def main() -> int:
     # The pixel kernels at 4:2:0 alone (profiler), by their template
     # arguments: K1, K12 (its DC plane), K13 (int8 input), K14, K11.
     pixel_keys = {
-        "pixel": ("pixel_kernel<16, 16, 384, 8, unsigned char, false>",),
+        "pixel": ("pixel_mma_kernel<16, 16, 64, 32>",),
         "pixel_dc": ("pixel_kernel<16, 16, 384, 8, unsigned char, true>",),
         "pixel_i8": ("pixel_kernel<16, 16, 384, 8, signed char, false>",),
         "pixel_dma": ("pixel_dma_kernel(",),
@@ -1028,6 +1070,56 @@ def main() -> int:
         line(f"pixel {sub} library: float64 torch.matmul {tuple(tiles.shape)}"
              f" x {tuple(m64.shape)}", library[sub])
         del tiles
+    # K1 and K14 (the factored tensor-core product) beside K12, which still
+    # runs the dense CUDA-core body and stands in for the old K1, and the
+    # library call, in turns in one call: K12, K1, K14, library, then the
+    # same in reverse; wrappers with their glue (CUDA events).
+    tiles = fused_dctq.mcu_tiles(x, 16, 16).to(torch.float64)
+    m64 = tables.m.to(torch.float64)
+    turns = {"K12 jt_pixel_dc (dense body)": pairs["pixel_dc"][0],
+             "K1 jt_pixel (factored)": pairs["pixel"][0],
+             "K14 jt_pixel_dma (factored, bulk copies)": pairs["pixel_dma"][0],
+             "library float64 torch.matmul": lambda: torch.matmul(tiles, m64)}
+    there = {k: time_ms(f) for k, f in turns.items()}
+    back = {k: time_ms(f) for k, f in reversed(list(turns.items()))}
+    for k in turns:
+        print(f"[time] pixel product in turns, 420 {w}x{h}: {k}: "
+              f"{there[k]:.4f} / {back[k]:.4f} ms  [{card}]")
+    del tiles, m64
+    # The host's cost of one launch: Kernel.launch (the operands' device
+    # made current, its stream looked up) against the bare launcher on the
+    # current stream, K1 on one MCU, 200 launches a turn in turns (A B B A,
+    # three times), host clock, synced between turns; medians.
+    one = x[:16, :16].contiguous()
+    out1 = torch.empty((1, 384), dtype=torch.int32, device=dev)
+    lum, chroma = fused_dctq.cuda_factors(tables.m, tables.bias, "420")
+    args = (one.data_ptr(), lum.data_ptr(), chroma.data_ptr(),
+            tables.bias.data_ptr(), out1.data_ptr(), 1, 1, 48, 16, 16, 64)
+    k1 = fused_dctq.PIXEL
+    ways = {"Kernel.launch (device guard, its stream)":
+            lambda: k1.launch(one.device, *args),
+            "bare launcher (current stream)":
+            lambda: k1._fn(*args, torch.cuda.current_stream().cuda_stream)}
+    host_us = {k: [] for k in ways}
+    for k in list(ways) + list(ways)[::-1] * 2 + list(ways):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            ways[k]()
+        host_us[k].append((time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+    if not torch.equal(out1, fused_dctq.encode_blocks_pairs_plain(
+            one, tables.m, tables.bias)):
+        raise AssertionError("K1 on one MCU disagrees with the dense twin")
+    for k, v in host_us.items():
+        print(f"[time] host per launch, {k}: {float(np.median(v)):.2f} us "
+              f"(turns {', '.join(f'{u:.2f}' for u in v)})  [{card}]")
+    for sub, dims in (("422", "8, 16, 64, 96"), ("444", "8, 8, 64, 64"),
+                      ("444s", "8, 8, 16, 128")):
+        alone = kernel_device_ms(pairs[f"pixel {sub}"][0],
+                                 f"pixel_mma_kernel<{dims}>")
+        print(f"[time] pixel kernel alone (profiler), {sub} {w}x{h}: "
+              f"{alone} ms  [{card}]")
 
     def device_path(image, sub, r, kw):
         """One device encode of a path with the selectors kw (no fetch)."""

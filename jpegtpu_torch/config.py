@@ -42,10 +42,10 @@ class EncoderConfig:
     # (``native.stuff_assemble_contig``). The same bytes either way.
     device_stuff: bool = True
     # The pixel route of the fused modes: "nat" the pixel kernel
-    # (csrc/pixel.cu), "dma" the kernel that stages its own input by
-    # asynchronous copies (csrc/pixel_dma.cu; 4:2:0 only, the other modes
-    # take "xla"), "xla" the tile gather and a float64 torch.matmul, no
-    # hand kernel. The same bytes on every route.
+    # (csrc/pixel_mma.cu), "dma" the kernel that brings its input in by bulk
+    # copies (csrc/pixel_dma.cu; 4:2:0 only, the other modes take "xla"),
+    # "xla" the tile gather and a float64 torch.matmul, no hand kernel. The
+    # same bytes on every route.
     pixel_path: str = dataclasses.field(
         default_factory=lambda: os.environ.get("JPEGTPU_PIXEL_PATH", "nat"))
     # One kernel for the pixel product, the DC differences and the block

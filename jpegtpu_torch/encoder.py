@@ -68,14 +68,36 @@ def block_operators(quality: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.stack([m_l, m_c]), np.stack([b_l, b_c])
 
 
+def operator_mode(m: np.ndarray) -> str | None:
+    """The fused mode whose ``mcu_operator`` has m's shape and factors (a
+    [192, 192] operator is 4:4:4s where its chroma groups are 2x2, else
+    4:4:4); None for any other shape (gray's block operator)."""
+    shapes = {(768, 384): "420", (384, 256): "422", (192, 192): "444"}
+    mode = shapes.get(tuple(m.shape))
+    if mode == "444":
+        try:
+            fused_dctq.factor_operator(m, "444s")
+            return "444s"
+        except ValueError:
+            pass
+    return mode
+
+
 class EncoderTables(nn.Module):
     """The encoder's per-quality, per-mode state as device buffers: the
     fused MCU operator ``m`` [in, out] f32 and ``bias`` [out] f32 of the
-    mode (``mcu_operator``; for gray, the luma block operator), the staged
-    path's ``block_m`` [2, 64, 64] and ``block_bias`` [2, 64] f32, and the
-    packed Huffman LUTs ``dc_codes``/``dc_lens`` [2, 16] and ``ac_codes``/
+    mode (``mcu_operator``; for gray, the luma block operator), its
+    factors ``lum`` [192, 64] and ``chroma`` [G*3, 128] f32
+    (``fused_dctq.factor_operator`` in the mode ``subsampling`` that
+    ``operator_mode`` reads off m; None for gray), the staged path's
+    ``block_m`` [2, 64, 64] and ``block_bias`` [2, 64] f32, and the packed
+    Huffman LUTs ``dc_codes``/``dc_lens`` [2, 16] and ``ac_codes``/
     ``ac_lens`` [2, 256] int32 (index 0 luma, 1 chroma). The kernels and
-    their plain twins read the same tensors."""
+    their plain twins read the same tensors. The factors are made from m
+    and bias here, on the host, and nowhere else: a fused operator that
+    does not factor raises ValueError. Wherever the module moves, it
+    records them as the factors of ``m`` for the factored pixel kernels
+    (``fused_dctq.remember_factors``)."""
 
     def __init__(self, m: torch.Tensor, bias: torch.Tensor,
                  dc_codes: torch.Tensor, dc_lens: torch.Tensor,
@@ -88,6 +110,26 @@ class EncoderTables(nn.Module):
         for name, t in (("dc_codes", dc_codes), ("dc_lens", dc_lens),
                         ("ac_codes", ac_codes), ("ac_lens", ac_lens)):
             self.register_buffer(name, t.to(torch.int32))
+        m_host = self.m.detach().cpu().numpy()
+        self.subsampling = operator_mode(m_host)
+        lum = chroma = None
+        if self.subsampling is not None:
+            lum, chroma = (torch.from_numpy(a).to(self.m.device) for a in
+                           fused_dctq.factor_operator(
+                               m_host, self.subsampling, self.bias))
+        self.register_buffer("lum", lum)
+        self.register_buffer("chroma", chroma)
+        self._remember()
+
+    def _remember(self) -> None:
+        if self.lum is not None:
+            fused_dctq.remember_factors(self.m, self.bias, self.subsampling,
+                                        self.lum, self.chroma)
+
+    def _apply(self, fn, *args, **kwargs):
+        out = super()._apply(fn, *args, **kwargs)
+        self._remember()
+        return out
 
     @classmethod
     def from_numpy(cls, m: np.ndarray, bias: np.ndarray,
@@ -97,7 +139,7 @@ class EncoderTables(nn.Module):
                    device: torch.device | str = "cpu") -> "EncoderTables":
         """Build from numpy arrays (``mcu_operator(q, mode)``,
         ``packed_luts()`` and ``block_operators(q)``, of this package or of
-        jpegtpu)."""
+        jpegtpu); a fused operator is factored on the host."""
         as_t = lambda a, dt: torch.from_numpy(  # noqa: E731
             np.ascontiguousarray(a).astype(dt))
         return cls(as_t(m, np.float32), as_t(bias, np.float32),

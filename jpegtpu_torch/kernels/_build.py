@@ -10,8 +10,10 @@ source or header is rebuilt and an unchanged one is reused. The pattern is ``jpe
 
 Each launcher takes device pointers, sizes and a CUDA stream, launches on
 that stream and returns the ``cudaError_t`` of the launch, which
-``Kernel.launch`` turns into an exception. Nothing here runs at import:
-this module is imported on machines without ``nvcc`` or a GPU.
+``Kernel.launch`` turns into an exception; it runs the launcher with its
+operands' device current and on that device's current stream, whatever
+device the caller has made current. Nothing here runs at import: this
+module is imported on machines without ``nvcc`` or a GPU.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("pixel.cu", "block_pack.cu", "seg_merge.cu", "stuff.cu",
-           "stuff_chunks.cu", "compact.cu", "fused_px_bp.cu", "pixel_dma.cu",
-           "mcu_merge.cu", "seg_merge_window.cu", "seg_merge_v1.cu")
+SOURCES = ("pixel_mma.cu", "pixel.cu", "block_pack.cu", "seg_merge.cu",
+           "stuff.cu", "stuff_chunks.cu", "compact.cu", "fused_px_bp.cu",
+           "pixel_dma.cu", "mcu_merge.cu", "seg_merge_window.cu",
+           "seg_merge_v1.cu")
 # Headers the sources include; part of the library's hash.
 HEADERS = ("pixel_common.cuh", "block_pack.cuh", "merge_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -126,14 +129,17 @@ class Kernel:
         self.launches = 0
         self._fn = None
 
-    def launch(self, *args) -> None:
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device`` (the operands' CUDA device): the launcher
+        runs with it current, on its current stream."""
         if self._fn is None:
             fn = getattr(library(), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = self._fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
         self.launches += 1
-

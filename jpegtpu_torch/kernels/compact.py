@@ -224,10 +224,11 @@ def compact_segments_stuffed(seg_words: torch.Tensor, seg_bits: torch.Tensor,
     _build.check_cuda(seg_words, chunk_off, in_chunk, seg_end, nchunks, mnum)
     out = torch.empty(scan_capacity(n_seg, w), dtype=torch.uint8,
                       device=seg_words.device)
-    STUFF_CHUNKS.launch(seg_words.data_ptr(), chunk_off.data_ptr(),
-                        in_chunk.data_ptr(), seg_end.data_ptr(),
-                        nchunks.data_ptr(), mnum.data_ptr(), out.data_ptr(),
-                        n_seg, w, chunk_off.shape[1])
+    STUFF_CHUNKS.launch(out.device, seg_words.data_ptr(),
+                        chunk_off.data_ptr(), in_chunk.data_ptr(),
+                        seg_end.data_ptr(), nchunks.data_ptr(),
+                        mnum.data_ptr(), out.data_ptr(), n_seg, w,
+                        chunk_off.shape[1])
     return out, total
 
 
@@ -269,7 +270,7 @@ def compact_segments_stuffed_grouped(seg_words: torch.Tensor,
     _build.check_cuda(seg_words, nbytes, seg_start, mnum)
     out = torch.empty(scan_capacity(n_seg, w), dtype=torch.uint8,
                       device=seg_words.device)
-    STUFF.launch(seg_words.data_ptr(), nbytes.data_ptr(),
+    STUFF.launch(out.device, seg_words.data_ptr(), nbytes.data_ptr(),
                  seg_start.data_ptr(), mnum.data_ptr(), out.data_ptr(),
                  n_seg, w)
     return out, total, img_off
@@ -316,6 +317,7 @@ def compact_segments(seg_words: torch.Tensor, seg_bits: torch.Tensor
     _build.check_cuda(seg_words, nbytes, off)
     out = torch.empty(4 * n_seg * w, dtype=torch.uint8,
                       device=seg_words.device)
-    COMPACT.launch(seg_words.data_ptr(), nbytes.data_ptr(), off.data_ptr(),
-                   out.data_ptr(), n_seg, w, -(-w // CHUNK_WORDS))
+    COMPACT.launch(out.device, seg_words.data_ptr(), nbytes.data_ptr(),
+                   off.data_ptr(), out.data_ptr(), n_seg, w,
+                   -(-w // CHUNK_WORDS))
     return out, nbytes

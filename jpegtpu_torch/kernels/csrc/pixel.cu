@@ -1,21 +1,21 @@
-// Pixel kernels: padded RGB image -> int32 quantized zigzag coefficients of
-// every MCU, as round_half_away(tile[kIn] . M[kIn, kOut] + bias), for the
-// fused MCU geometries of jpegtpu_torch.kernels.fused_dctq.mcu_operator:
+// Dense pixel kernels: padded RGB image -> int32 quantized zigzag
+// coefficients of every MCU, as round_half_away(tile[kIn] . M[kIn, kOut] +
+// bias), for the fused MCU geometries of
+// jpegtpu_torch.kernels.fused_dctq.mcu_operator:
 //
 //   4:2:0           16x16 MCU, 768 inputs -> 6 blocks, 384 outputs
 //   4:2:2           8x16 MCU,  384 inputs -> 4 blocks, 256 outputs
 //   4:4:4, 4:4:4s   8x8 MCU,   192 inputs -> 3 blocks, 192 outputs
 //
-// (4:4:4s differs from 4:4:4 only in its operator.) Three launchers share
+// (4:4:4s differs from 4:4:4 only in its operator.) Two launchers share
 // one kernel body:
 //
-//   jt_pixel     u8 image; replaces jpegtpu/kernels/fused_dctq.py:
-//                _pixel_kernel_nat (encode_blocks_pallas_nat_pairs).
-//   jt_pixel_dc  the same, plus the DC plane dc [nMCU, 8] int32 (dc[:, k]
-//                = column 64k, lanes B..7 zero); replaces
-//                _pixel_kernel_nat_dc (encode_blocks_pallas_nat_pairs with
-//                with_dc=True). The thread that owns column 64k writes
-//                lane k; threads B..7 write the zero lanes.
+//   jt_pixel_dc  the coefficients plus the DC plane dc [nMCU, 8] int32
+//                (dc[:, k] = column 64k, lanes B..7 zero); replaces
+//                jpegtpu/kernels/fused_dctq.py:_pixel_kernel_nat_dc
+//                (encode_blocks_pallas_nat_pairs with with_dc=True). The
+//                thread that owns column 64k writes lane k; threads B..7
+//                write the zero lanes.
 //   jt_pixel_i8  4:2:0 only: the image as its centred int8 view x ^ 0x80
 //                (= x - 128), restored exactly by + 128.0 before the sum;
 //                replaces _pixel_kernel (encode_blocks_pallas_pairs). The
@@ -23,10 +23,12 @@
 //                the view [rows, mh, nrx, row_bytes] is a free reshape of
 //                the image, so its addresses are the u8 image's.
 //
-// The TPU kernels tile row slabs into MCUs in VMEM and run one f32 MXU
-// matmul; here each block stages the pixels of kMcus MCUs in shared memory
-// as doubles and each of its kOut threads owns one output column for all
-// of them (pixel_common.cuh).
+// K1 (jt_pixel) and K14 moved to the factored tensor-core product
+// (pixel_mma.cu, pixel_dma.cu); these two keep the dense one until their
+// own redesign. The TPU kernels tile row slabs into MCUs in VMEM and run
+// one f32 MXU matmul; here each block stages the pixels of kMcus MCUs in
+// shared memory as doubles and each of its kOut threads owns one output
+// column for all of them (pixel_common.cuh's mcu_product).
 //
 // Bound: float64 FMAs (9.6 G at 3840x2160 4:2:0) and the reads of M, which
 // every block streams once from L2 (kIn*kOut*4 bytes). Staging kMcus MCUs
@@ -123,14 +125,6 @@ int dispatch(const T* img, const float* m, const float* bias, int32_t* out,
 // mh x mw is the MCU in pixels: 16x16 (4:2:0), 8x16 (4:2:2) or 8x8 (4:4:4
 // and 4:4:4s); any other geometry is refused before a launch. row_bytes is
 // the image's row pitch in bytes (W * 3).
-extern "C" int jt_pixel(const uint8_t* img, const float* m, const float* bias,
-                        int32_t* out, long long n_mcu, long long nrx,
-                        long long row_bytes, int mh, int mw,
-                        cudaStream_t stream) {
-  return dispatch<uint8_t, false>(img, m, bias, out, nullptr, n_mcu, nrx,
-                                  row_bytes, mh, mw, stream);
-}
-
 extern "C" int jt_pixel_dc(const uint8_t* img, const float* m,
                            const float* bias, int32_t* out, int32_t* dc,
                            long long n_mcu, long long nrx, long long row_bytes,

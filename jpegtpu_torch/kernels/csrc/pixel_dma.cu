@@ -1,23 +1,28 @@
-// Async-copy pixel kernel (4:2:0): the padded u8 RGB image stays in global
-// memory and each block stages its own input with asynchronous copies,
-// double-buffered, then computes the same coefficients as pixel.cu:
-// round_half_away(tile[768] . M[768, 384] + bias), float64 sum in
-// pixel_common.cuh's fixed order.
+// K14, jt_pixel_dma (4:2:0): the coefficients of pixel_mma.cu's K1, by the
+// same factored float64 tensor-core product (pixel_common.cuh), with the
+// pixels brought into shared memory by Hopper's bulk copies.
 //
 // Replaces jpegtpu/kernels/fused_dctq.py:_pixel_kernel_dma (called from
-// encode_blocks_pallas_dma_pairs), whose grid steps DMA one slab of MCU
-// rows from HBM into VMEM (double-buffered by the kernel, with semaphores)
-// while the previous slab is multiplied. Here a grid of at most as many
-// blocks as fit on the card at once walks the MCUs in strips of kMcus
-// (MCUs strip*kMcus .. +kMcus-1 in raster order; a strip may cross an MCU
-// row, and the last may be short): the 16-byte cp.async copies of the
-// block's next strip (each MCU is 16 rows of 48 bytes, three copies a row)
-// are in flight while it converts and multiplies the current one.
-// cp.async needs 16-byte aligned addresses: the row pitch W*3 of a 4:2:0
-// image is a multiple of 48, an MCU starts at a multiple of 48 bytes in its
-// row, and the wrapper hands over a 16-byte aligned base.
+// encode_blocks_pallas_dma_pairs), whose grid steps DMA one slab of MCU rows
+// from HBM into VMEM (make_async_copy, double-buffered, with semaphores)
+// while the previous slab is multiplied. Here a persistent grid (the blocks
+// that fit on the card at once, set up per device) walks tiles of 32
+// consecutive MCUs in a ring of two stages. One producer warp issues, for
+// each stage, one cp.async.bulk (global -> shared, completing on the stage's
+// "full" mbarrier with the byte count) per pixel row of each run of the
+// tile's MCUs that lies in one MCU row: that run of 16 rows is contiguous
+// in each row, kMcus * 48 bytes, 16-byte aligned (the row pitch W * 3 is a
+// multiple of 48 and the wrapper hands over a 16-byte aligned image), so a
+// 1-D bulk copy needs no tensor map. Twelve consumer warps wait on "full",
+// form the group sums, run the product and arrive on the stage's "empty"
+// mbarrier, which the producer waits on before it refills the stage.
 //
-// Bound: as pixel.cu, the float64 FMAs; the image is read once.
+// Bound: as K1, the float64 tensor-core rate (0.071 ms at 3840x2160); the
+// image is read once.
+//
+// Shared memory (one block an SM, 13 warps; ptxas gives them 128 registers a
+// thread and spills a few): operators 147,456 + sums 13,312 + two stages of 24,576 + four
+// mbarriers 32 = 209,952 bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -26,121 +31,158 @@
 
 namespace {
 
-constexpr int kMh = 16, kMw = 16, kOut = 384;
-constexpr int kMcus = 8;                              // MCUs per strip
-using G = jt::PixelGeometry<kMh, kMw, kOut>;
-constexpr int kCopiesPerRow = G::kRowBytes / 16;      // 3
-constexpr int kCopies = kMcus * kMh * kCopiesPerRow;  // per strip: 384
-constexpr int kStripBytes = kMcus * G::kIn;           // u8, [kMcus][kIn]
-constexpr int kPxBytes = G::kIn * kMcus * (int)sizeof(double);
-constexpr int kSmemBytes = kPxBytes + 2 * kStripBytes;
-static_assert(G::kRowBytes % 16 == 0 && kStripBytes % 16 == 0, "alignment");
+constexpr int kTile = 32;
+using F = jt::Factored<16, 16, 64, kTile>;
+constexpr int kStages = 2;
+constexpr int kConsumers = 12;                 // warps that multiply
+constexpr int kThreads = (kConsumers + 1) * 32;
+constexpr int kBarrierOffset = F::kPixelOffset + kStages * F::kTileBytes;
+constexpr int kSmemBytes = kBarrierOffset + 2 * kStages * 8;
+static_assert(kSmemBytes <= 232448, "shared memory");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
 }
 
-// Wait until at most one group (the most recent) is still in flight.
-__device__ __forceinline__ void cp_async_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
-// Start this thread's copies of strip `strip` into raw [kMcus][kIn].
-__device__ __forceinline__ void start_strip(const uint8_t* img, uint8_t* raw,
-                                            long long strip, long long n_mcu,
-                                            long long nrx,
-                                            long long row_bytes) {
-  for (int t = threadIdx.x; t < kCopies; t += blockDim.x) {
-    const int k = t / (kMh * kCopiesPerRow);
-    const int rem = t - k * (kMh * kCopiesPerRow);
-    const int y = rem / kCopiesPerRow, part = rem - y * kCopiesPerRow;
-    const long long mcu = strip * kMcus + k;
-    if (mcu < n_mcu) {
-      const long long r = mcu / nrx, c = mcu - r * nrx;
-      cp_async16(raw + k * G::kIn + y * G::kRowBytes + part * 16,
-                 img + (r * kMh + y) * row_bytes + c * G::kRowBytes +
-                     part * 16);
-    }
-  }
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
 }
 
-__global__ void __launch_bounds__(kOut)
-pixel_dma_kernel(const uint8_t* __restrict__ img, const float* __restrict__ m,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Consumer warps only (the producer runs its own loop).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 32) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+pixel_dma_kernel(const uint8_t* __restrict__ img,
+                 const float* __restrict__ lum,
+                 const float* __restrict__ chroma,
                  const float* __restrict__ bias, int32_t* __restrict__ out,
-                 long long n_mcu, long long nrx, long long row_bytes,
-                 long long n_strips) {
-  extern __shared__ double px[];    // [kIn][kMcus], then two raw strips
-  uint8_t* raw = (uint8_t*)(px + G::kIn * kMcus);
-  const int col = threadIdx.x;
-  const double b = (double)bias[col];
-  long long strip = blockIdx.x;
-  if (strip < n_strips) start_strip(img, raw, strip, n_mcu, nrx, row_bytes);
-  cp_async_commit();
-  for (int it = 0; strip < n_strips; ++it, strip += gridDim.x) {
-    const long long next = strip + gridDim.x;
-    if (next < n_strips)
-      start_strip(img, raw + ((it + 1) & 1) * kStripBytes, next, n_mcu, nrx,
-                  row_bytes);
-    cp_async_commit();
-    cp_async_wait_all_but_one();      // this thread's copies of `strip`
-    __syncthreads();                  // ... and every other thread's
-    const uint8_t* cur = raw + (it & 1) * kStripBytes;
-    for (int t = threadIdx.x; t < G::kIn * kMcus; t += blockDim.x) {
-      const int k = t / G::kIn, i = t - k * G::kIn;
-      px[i * kMcus + k] = (double)cur[k * G::kIn + i];
+                 long long n_mcu, unsigned nrx, long long row_bytes,
+                 long long n_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* lum_f = reinterpret_cast<float4*>(smem);
+  float4* chroma_f = lum_f + F::kLumFloats / 4;
+  uint16_t* sums = reinterpret_cast<uint16_t*>(smem + F::kOpBytes);
+  uint8_t* stage = smem + F::kPixelOffset;      // [kStages][kTileBytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarrierOffset);
+  uint64_t* empty = full + kStages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  jt::load_fragments(lum_f, lum, 192, 64, threadIdx.x, kThreads);
+  jt::load_fragments(chroma_f, chroma, F::kChromaK, 128, threadIdx.x,
+                     kThreads);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
     }
-    // After this barrier the raw strip is free for the copies started at the
-    // top of the next iteration; the barrier there keeps px until every
-    // thread has finished this strip's product.
-    __syncthreads();
-    double acc[kMcus];
-    jt::mcu_product<G::kIn, kOut, kMcus>(px, m, col, acc);
-#pragma unroll
-    for (int k = 0; k < kMcus; ++k) {
-      const long long mcu = strip * kMcus + k;
-      if (mcu < n_mcu) out[mcu * kOut + col] = jt::round_half_away(acc[k] + b);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {                     // the producer warp
+    int it = 0;
+    for (long long tile = blockIdx.x; tile < n_tiles;
+         tile += gridDim.x, ++it) {
+      const int s = it % kStages;
+      if (it >= kStages) mbar_wait(empty + s, ((it / kStages) - 1) & 1);
+      const long long m0 = tile * kTile;
+      const int valid = (int)(n_mcu - m0 < kTile ? n_mcu - m0 : kTile);
+      if (lane == 0) mbar_expect(full + s, (uint32_t)valid * 768);
+      __syncwarp();
+      uint8_t* dst = stage + s * F::kTileBytes;
+      for (int k = 0; k < valid;) {             // runs within one MCU row
+        const unsigned mcu = (unsigned)(m0 + k);
+        const unsigned row = mcu / nrx, col = mcu - row * nrx;
+        const int run = min(valid - k, (int)(nrx - col));
+        if (lane < 16)
+          bulk_copy(dst + lane * F::kStripRow + k * 48,
+                    img + ((long long)row * 16 + lane) * row_bytes +
+                        (long long)col * 48,
+                    (uint32_t)run * 48, full + s);
+        k += run;
+      }
     }
+    return;
+  }
+  int it = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int s = it % kStages;
+    const uint8_t* px = stage + s * F::kTileBytes;
+    mbar_wait(full + s, (it / kStages) & 1);
+    consumers_sync();           // every consumer is done with the last sums
+    jt::group_sums<F>(px, sums, threadIdx.x, kConsumers * 32);
+    consumers_sync();
+    jt::tile_product<F>(px, sums, lum_f, chroma_f, bias, out, tile * kTile,
+                        n_mcu, warp, kConsumers, lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
   }
 }
 
 }  // namespace
 
 // The 4:2:0 image [rows * 16, nrx * 16, 3] u8 at a 16-byte aligned address,
-// row pitch row_bytes = nrx * 48.
-extern "C" int jt_pixel_dma(const uint8_t* img, const float* m,
-                            const float* bias, int32_t* out, long long n_mcu,
-                            long long nrx, long long row_bytes,
-                            cudaStream_t stream) {
+// row pitch row_bytes = nrx * 48; lum [192, 64] and chroma [192, 128] f32.
+extern "C" int jt_pixel_dma(const uint8_t* img, const float* lum,
+                            const float* chroma, const float* bias,
+                            int32_t* out, long long n_mcu, long long nrx,
+                            long long row_bytes, cudaStream_t stream) {
   if (n_mcu <= 0) return 0;
+  if (n_mcu >= (1LL << 31) || nrx >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(img) & 15) || row_bytes % 16)
     return (int)cudaErrorMisalignedAddress;
-  static int grid_cap = 0;          // blocks resident on the card at once
-  if (grid_cap == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pixel_dma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (e != cudaSuccess) return (int)e;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return (int)e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, pixel_dma_kernel, kOut, kSmemBytes)) != cudaSuccess)
-      return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    grid_cap = sms * per_sm;
-  }
-  const long long n_strips = (n_mcu + kMcus - 1) / kMcus;
-  const long long blocks = n_strips < grid_cap ? n_strips : grid_cap;
-  pixel_dma_kernel<<<(unsigned)blocks, kOut, kSmemBytes, stream>>>(
-      img, m, bias, out, n_mcu, nrx, row_bytes, n_strips);
+  static int cap[jt::kMaxDevices];    // grid per device, set up on first use
+  int grid = 0;
+  const int err =
+      jt::device_grid(pixel_dma_kernel, kSmemBytes, kThreads, cap, &grid);
+  if (err) return err;
+  const long long n_tiles = (n_mcu + kTile - 1) / kTile;
+  if (n_tiles < grid) grid = (int)n_tiles;
+  pixel_dma_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      img, lum, chroma, bias, out, n_mcu, (unsigned)nrx, row_bytes, n_tiles);
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory a block of jt_pixel_dma takes, for reports.
+extern "C" int jt_pixel_dma_smem() { return kSmemBytes; }

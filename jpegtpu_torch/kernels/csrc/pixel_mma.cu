@@ -1,0 +1,187 @@
+// K1, jt_pixel: padded RGB image -> int32 quantized zigzag coefficients of
+// every MCU, round_half_away(tile . M + bias), by the factored float64
+// tensor-core product of pixel_common.cuh (mma.sync m16n8k8 .f64 on the
+// operator's two factors, lum [192, 64] and chroma [G * 3, 128]), for the
+// fused geometries of jpegtpu_torch.kernels.fused_dctq.mcu_operator:
+//
+//   4:2:0          16x16 MCU, 4 luma blocks, G = 64 2x2 groups, 384 outputs
+//   4:2:2          8x16 MCU,  2 luma blocks, G = 64 1x2 groups, 256 outputs
+//   4:4:4          8x8 MCU,   1 luma block,  G = 64 1x1 groups, 192 outputs
+//   4:4:4s         8x8 MCU,   1 luma block,  G = 16 2x2 groups, 192 outputs
+//
+// Replaces jpegtpu/kernels/fused_dctq.py:_pixel_kernel_nat (called from
+// encode_blocks_pallas_nat_pairs), which tiles row slabs of MCUs in VMEM and
+// runs one dense f32 MXU matmul against M. Here a persistent grid (the
+// blocks that fit on the card at once, one an SM) walks tiles of kTile
+// consecutive MCUs; each block loads the two operators once into shared
+// memory, then per tile stages the pixels as u8 (each thread fetches its
+// 16- or 8-byte pieces of the next tile into registers before the current
+// tile's product, so the loads overlap it), forms the chroma group sums and
+// runs the two products in 32 x 32 warp tiles.
+//
+// Bound: the float64 tensor-core rate. 4:2:0 needs 73,728 multiply-adds an
+// MCU (4.78 GFLOP at 3840x2160, 0.071 ms at 67 TFLOP/s) against 25 MB of
+// pixels in and 49.8 MB of coefficients out (0.022 ms at 3.35 TB/s).
+//
+// Shared memory and occupancy (12 warps a block, at most 168 registers a
+// thread, with which ptxas spills a few; one block an SM; 232,448 bytes a
+// block at most):
+//   4:2:0   kTile 32:  operators 147,456 + sums 13,312 + pixels 24,576
+//                      = 185,344 bytes; 12 warp tiles a tile
+//   4:2:2   kTile 96:  147,456 + 39,936 + 36,864 = 224,256; 24 warp tiles
+//   4:4:4   kTile 64:  147,456 + 26,624 + 12,288 = 186,368; 12 warp tiles
+//   4:4:4s  kTile 128: 73,728 + 12,288 + 24,576 = 110,592; 24 warp tiles
+//                      (8 luma of K 192, 16 chroma of K 48)
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "pixel_common.cuh"
+
+namespace {
+
+constexpr int kWarps = 12;
+constexpr int kThreads = kWarps * 32;
+
+template <typename F>
+struct Staging {
+  // 16-byte pieces where an MCU row is 48 bytes, 8-byte where it is 24.
+  using Piece = std::conditional_t<F::kRowBytes % 16 == 0, uint4, uint2>;
+  static constexpr int kBytes = (int)sizeof(Piece);
+  static constexpr int kPerRow = F::kRowBytes / kBytes;   // pieces an MCU row
+  static constexpr int kPerThread = F::kTileBytes / kBytes / kThreads;
+  static_assert(F::kTileBytes % (kBytes * kThreads) == 0, "pieces");
+  static constexpr int kSmemBytes = F::kPixelOffset + F::kTileBytes;
+  static_assert(kSmemBytes <= 232448, "shared memory");
+
+  // This thread's pieces of the tile at MCU m0 (zeros past n_mcu). Piece q
+  // is row y, MCU k, part p of the tile, and lands at byte q * kBytes of
+  // the staged tile [kMh][kTile * kRowBytes].
+  __device__ static void fetch(Piece (&r)[kPerThread],
+                               const uint8_t* __restrict__ img, long long m0,
+                               long long n_mcu, unsigned nrx,
+                               long long row_bytes) {
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int q = threadIdx.x + i * kThreads;
+      const int y = q / (F::kTile * kPerRow);
+      const int rem = q - y * (F::kTile * kPerRow);
+      const int k = rem / kPerRow, part = rem - k * kPerRow;
+      const long long mcu = m0 + k;
+      r[i] = Piece{};
+      if (mcu < n_mcu) {
+        const unsigned row = (unsigned)mcu / nrx;
+        const unsigned col = (unsigned)mcu - row * nrx;
+        r[i] = __ldg(reinterpret_cast<const Piece*>(
+            img + ((long long)row * F::kMcuH + y) * row_bytes +
+            (long long)col * F::kRowBytes + part * kBytes));
+      }
+    }
+  }
+};
+
+template <int kMh, int kMw, int kGroups, int kTile>
+__global__ void __launch_bounds__(kThreads, 1)
+pixel_mma_kernel(const uint8_t* __restrict__ img,
+                 const float* __restrict__ lum,
+                 const float* __restrict__ chroma,
+                 const float* __restrict__ bias, int32_t* __restrict__ out,
+                 long long n_mcu, unsigned nrx, long long row_bytes,
+                 long long n_tiles) {
+  using F = jt::Factored<kMh, kMw, kGroups, kTile>;
+  using S = Staging<F>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* lum_f = reinterpret_cast<float4*>(smem);
+  float4* chroma_f = lum_f + F::kLumFloats / 4;
+  uint16_t* sums = reinterpret_cast<uint16_t*>(smem + F::kOpBytes);
+  uint8_t* px = smem + F::kPixelOffset;
+  typename S::Piece* pieces = reinterpret_cast<typename S::Piece*>(px);
+
+  jt::load_fragments(lum_f, lum, 192, 64, threadIdx.x, kThreads);
+  jt::load_fragments(chroma_f, chroma, F::kChromaK, 128, threadIdx.x,
+                     kThreads);
+  typename S::Piece r[S::kPerThread];
+  long long tile = blockIdx.x;
+  if (tile < n_tiles) S::fetch(r, img, tile * kTile, n_mcu, nrx, row_bytes);
+  for (; tile < n_tiles; tile += gridDim.x) {
+    __syncthreads();            // the last tile's product is done with px
+#pragma unroll
+    for (int i = 0; i < S::kPerThread; ++i)
+      pieces[threadIdx.x + i * kThreads] = r[i];
+    const long long next = tile + gridDim.x;
+    if (next < n_tiles) S::fetch(r, img, next * kTile, n_mcu, nrx, row_bytes);
+    __syncthreads();
+    jt::group_sums<F>(px, sums, threadIdx.x, kThreads);
+    __syncthreads();
+    jt::tile_product<F>(px, sums, lum_f, chroma_f, bias, out, tile * kTile,
+                        n_mcu, threadIdx.x / 32, kWarps, threadIdx.x % 32);
+  }
+}
+
+template <int kMh, int kMw, int kGroups, int kTile>
+int launch(const uint8_t* img, const float* lum, const float* chroma,
+           const float* bias, int32_t* out, long long n_mcu, long long nrx,
+           long long row_bytes, cudaStream_t stream) {
+  using F = jt::Factored<kMh, kMw, kGroups, kTile>;
+  using S = Staging<F>;
+  if ((reinterpret_cast<uintptr_t>(img) | (uintptr_t)row_bytes) %
+      S::kBytes)
+    return (int)cudaErrorMisalignedAddress;
+  static int cap[jt::kMaxDevices];    // grid per device, set up on first use
+  int grid = 0;
+  const int err = jt::device_grid(pixel_mma_kernel<kMh, kMw, kGroups, kTile>,
+                                  S::kSmemBytes, kThreads, cap, &grid);
+  if (err) return err;
+  const long long n_tiles = (n_mcu + kTile - 1) / kTile;
+  if (n_tiles < grid) grid = (int)n_tiles;
+  pixel_mma_kernel<kMh, kMw, kGroups, kTile>
+      <<<grid, kThreads, S::kSmemBytes, stream>>>(
+          img, lum, chroma, bias, out, n_mcu, (unsigned)nrx, row_bytes,
+          n_tiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// mh x mw is the MCU in pixels and groups the chroma groups G of its
+// operator: 16x16 / 64 (4:2:0), 8x16 / 64 (4:2:2), 8x8 / 64 (4:4:4) or
+// 8x8 / 16 (4:4:4s); any other geometry is refused before a launch. img is
+// the padded image at a 16-byte (8x8 MCUs: 8-byte) aligned address, row
+// pitch row_bytes = W * 3; lum [192, 64] and chroma [G * 3, 128] f32.
+extern "C" int jt_pixel(const uint8_t* img, const float* lum,
+                        const float* chroma, const float* bias, int32_t* out,
+                        long long n_mcu, long long nrx, long long row_bytes,
+                        int mh, int mw, int groups, cudaStream_t stream) {
+  if (n_mcu <= 0) return 0;
+  if (n_mcu >= (1LL << 31) || nrx >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (mh == 16 && mw == 16 && groups == 64)
+    return launch<16, 16, 64, 32>(img, lum, chroma, bias, out, n_mcu, nrx,
+                                  row_bytes, stream);
+  if (mh == 8 && mw == 16 && groups == 64)
+    return launch<8, 16, 64, 96>(img, lum, chroma, bias, out, n_mcu, nrx,
+                                 row_bytes, stream);
+  if (mh == 8 && mw == 8 && groups == 64)
+    return launch<8, 8, 64, 64>(img, lum, chroma, bias, out, n_mcu, nrx,
+                                row_bytes, stream);
+  if (mh == 8 && mw == 8 && groups == 16)
+    return launch<8, 8, 16, 128>(img, lum, chroma, bias, out, n_mcu, nrx,
+                                 row_bytes, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory a block of jt_pixel takes for a geometry (0 for
+// one it refuses), for reports.
+extern "C" int jt_pixel_smem(int mh, int mw, int groups) {
+  if (mh == 16 && mw == 16 && groups == 64)
+    return Staging<jt::Factored<16, 16, 64, 32>>::kSmemBytes;
+  if (mh == 8 && mw == 16 && groups == 64)
+    return Staging<jt::Factored<8, 16, 64, 96>>::kSmemBytes;
+  if (mh == 8 && mw == 8 && groups == 64)
+    return Staging<jt::Factored<8, 8, 64, 64>>::kSmemBytes;
+  if (mh == 8 && mw == 8 && groups == 16)
+    return Staging<jt::Factored<8, 8, 16, 128>>::kSmemBytes;
+  return 0;
+}

@@ -96,8 +96,9 @@ def mcu_merge(words: torch.Tensor, lens: torch.Tensor, g: int,
     nm = n // g
     mwords = torch.empty((nm, width), dtype=torch.int32, device=words.device)
     mlens = torch.empty((nm,), dtype=torch.int32, device=words.device)
-    MCU_MERGE.launch(words.data_ptr(), lens.data_ptr(), mwords.data_ptr(),
-                     mlens.data_ptr(), nm, g, words.shape[1], width)
+    MCU_MERGE.launch(words.device, words.data_ptr(), lens.data_ptr(),
+                     mwords.data_ptr(), mlens.data_ptr(), nm, g,
+                     words.shape[1], width)
     return mwords, mlens
 
 
@@ -122,8 +123,9 @@ def _append(kernel: _build.Kernel, plain, rows: torch.Tensor,
                              f"hold fewer than 2^31")
     out = torch.zeros((n_seg, width), dtype=torch.int32, device=rows.device)
     seg_bits = torch.empty((n_seg,), dtype=torch.int32, device=rows.device)
-    kernel.launch(rows.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                  seg_bits.data_ptr(), n_seg, per_seg, rows.shape[1], width)
+    kernel.launch(rows.device, rows.data_ptr(), lens.data_ptr(),
+                  out.data_ptr(), seg_bits.data_ptr(), n_seg, per_seg,
+                  rows.shape[1], width)
     return out, seg_bits
 
 

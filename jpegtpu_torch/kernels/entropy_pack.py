@@ -136,7 +136,8 @@ def block_pack(coeffs: torch.Tensor, cls: torch.Tensor, dcdiff: torch.Tensor
     words = torch.empty((n, BLOCK_WORDS), dtype=torch.int32,
                         device=coeffs.device)
     lens = torch.empty((n,), dtype=torch.int32, device=coeffs.device)
-    PACK_BLOCKS.launch(*(a.data_ptr() for a in (*args, *luts)),
+    PACK_BLOCKS.launch(coeffs.device,
+                       *(a.data_ptr() for a in (*args, *luts)),
                        words.data_ptr(), lens.data_ptr(), n)
     return words, lens
 
@@ -181,8 +182,8 @@ def block_pack_mcu_pairs(c2: torch.Tensor, cls: torch.Tensor,
     mw = mcu_words(g)
     mwords = torch.empty((nm, mw), dtype=torch.int32, device=c2.device)
     mlens = torch.empty((nm,), dtype=torch.int32, device=c2.device)
-    BLOCK_PACK.launch(*(a.data_ptr() for a in args), mwords.data_ptr(),
-                      mlens.data_ptr(), nm, g, mw)
+    BLOCK_PACK.launch(c2.device, *(a.data_ptr() for a in args),
+                      mwords.data_ptr(), mlens.data_ptr(), nm, g, mw)
     return mwords, mlens
 
 
@@ -284,8 +285,8 @@ def seg_merge_mcu(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
     _build.check_cuda(mwords, mlens, off)
     seg_w = segment_words(n_seg, mps, mw)
     out = torch.zeros((n_seg, seg_w), dtype=torch.int32, device=mwords.device)
-    SEG_MERGE.launch(mwords.data_ptr(), mlens.data_ptr(), off.data_ptr(),
-                     out.data_ptr(), nm, mps, mw, seg_w)
+    SEG_MERGE.launch(mwords.device, mwords.data_ptr(), mlens.data_ptr(),
+                     off.data_ptr(), out.data_ptr(), nm, mps, mw, seg_w)
     return out, seg_bits
 
 

@@ -16,7 +16,7 @@ one call, by the route that ``pixel_path`` names (jpegtpu's
 ``encoder._pixel_path_pairs``). The fused product has four hand kernels
 and one library route, each the counterpart of one jpegtpu function:
 
-    encode_blocks_pairs           csrc/pixel.cu jt_pixel (K1,
+    encode_blocks_pairs           csrc/pixel_mma.cu jt_pixel (K1,
                                   _pixel_kernel_nat); "nat"
     encode_blocks_pairs(with_dc)  csrc/pixel.cu jt_pixel_dc (K12,
                                   _pixel_kernel_nat_dc), the DC plane too;
@@ -33,16 +33,26 @@ the plain twin (``encode_blocks_pairs_plain``, ``dc_plane``,
 ``pixel_i8_plain``). K13 and K14 exist for 4:2:0 alone, as in jpegtpu;
 their wrappers give the other modes to the "xla" route, as jpegtpu's do.
 
+K1 and K14 multiply by the operator's two factors (``factor_operator``):
+one luma block's operator lum [192, 64], the same for every luma block,
+and chroma [G*3, 128] over the exact integer sums of the chroma groups,
+on the float64 tensor cores; ``encode_blocks_factored_plain`` is that
+arithmetic in torch. They get the factors of a CUDA operator from
+``EncoderTables``, which factors its operator on the host when it is made.
+
 The product accumulates in float64. jpegtpu's f32 product on CPU and an f32
 product summed in any other order disagree on a few coefficients that sit
 near x.5; products of u8 pixels and f32 operator entries are exact in
-float64, and the float64 sum matched jpegtpu on every image tried.
+float64, and ``factor_operator`` checks that every column's sum is exact
+in float64 in any order (``operator_bits``), so the dense twin, the
+factored form and every kernel give the same integers.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -53,9 +63,10 @@ from jpegtpu_torch.core import ops, tables
 from jpegtpu_torch.kernels import _build
 
 PIXEL = _build.Kernel("jt_pixel", [
-    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img, m, bias, out
+    _build.PTR, _build.PTR, _build.PTR,               # img, lum, chroma
+    _build.PTR, _build.PTR,                           # bias, out
     _build.I64, _build.I64, _build.I64,               # n_mcu, nrx, row_bytes
-    _build.I32, _build.I32])                          # MCU height, width
+    _build.I32, _build.I32, _build.I32])              # MCU h, w, groups
 PIXEL_DC_PLANE = _build.Kernel("jt_pixel_dc", [
     _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img, m, bias, out
     _build.PTR,                                       # dc
@@ -65,7 +76,8 @@ PIXEL_I8 = _build.Kernel("jt_pixel_i8", [
     _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img (i8), m, bias, out
     _build.I64, _build.I64, _build.I64])              # n_mcu, nrx, row_bytes
 PIXEL_DMA = _build.Kernel("jt_pixel_dma", [
-    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img, m, bias, out
+    _build.PTR, _build.PTR, _build.PTR,               # img, lum, chroma
+    _build.PTR, _build.PTR,                           # bias, out
     _build.I64, _build.I64, _build.I64])              # n_mcu, nrx, row_bytes
 
 # Take the DC plane from the DC-plane kernel on the "nat" route (jpegtpu's
@@ -159,6 +171,147 @@ def mcu_operator(quality: int, subsampling: str) -> Tuple[np.ndarray, np.ndarray
     return big.astype(np.float32), bias.astype(np.float32)
 
 
+def chroma_groups(subsampling: str) -> Tuple[int, int, int]:
+    """(G, gy, gx): the chroma groups of a fused mode's MCU, each gy x gx
+    pixels over which every chroma column of ``mcu_operator`` weighs the
+    pixels of one channel equally (the pixels one chroma sample covers;
+    4:4:4s's in-operator 2x2 smoothing makes its groups 2x2 as well)."""
+    gy, gx = {"420": (2, 2), "422": (1, 2), "444": (1, 1),
+              "444s": (2, 2)}[subsampling]
+    mh, mw = ops.mcu_shape(subsampling)
+    return (mh // gy) * (mw // gx), gy, gx
+
+
+def _operator_array(a) -> np.ndarray:
+    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+
+def expand_factors(lum: np.ndarray, chroma: np.ndarray,
+                   subsampling: str) -> np.ndarray:
+    """The dense [in, out] f32 operator whose factors are lum and chroma
+    (the inverse of ``factor_operator``)."""
+    mh, mw, _, n_out = fused_geometry(subsampling)
+    _, gy, gx = chroma_groups(subsampling)
+    n_luma = n_out // 64 - 2
+    ys, xs, cs = np.meshgrid(np.arange(mh), np.arange(mw), np.arange(3),
+                             indexing="ij")
+    big = np.zeros((mh, mw, 3, n_out), np.float32)
+    blk = (ys // 8) * (mw // 8) + xs // 8
+    lum_rows = lum[((ys % 8) * 8 + xs % 8) * 3 + cs]       # [mh, mw, 3, 64]
+    for b in range(n_luma):
+        big[..., b * 64:(b + 1) * 64] = np.where((blk == b)[..., None],
+                                                 lum_rows, 0)
+    grp = ((ys // gy) * (mw // gx) + xs // gx) * 3 + cs
+    big[..., n_luma * 64:] = chroma[grp]
+    return big.reshape(mh * mw * 3, n_out)
+
+
+def operator_bits(m, bias=None) -> np.ndarray:
+    """Per output column of an operator [in, out] f32 (with its bias): how
+    many bits lie between the finest bit set in any nonzero weight or the
+    bias and the magnitude bound ``255 * sum|w| + |bias|`` of the column's
+    sum over u8 pixels. Every partial sum of such a column, in any order
+    and any association, is a multiple of that finest bit no larger than
+    the bound, so it is exact in float64 (53 bits) where this is <= 53.
+    The bound is summed in float64 and raised by 2**-40 (far above that
+    sum's rounding error), so the count never comes out low."""
+    w = _operator_array(m)
+    b = np.zeros(w.shape[1], np.float32) if bias is None else \
+        _operator_array(bias)
+    vals = np.concatenate([w, b[None, :]], axis=0)
+    bits = vals.view(np.uint32) & 0x7FFFFFFF
+    exp = (bits >> 23).astype(np.int64)
+    mant = ((bits & 0x7FFFFF) | np.where(exp > 0, 1 << 23, 0)).astype(
+        np.int64)
+    low = np.frexp((mant & -mant).astype(np.float64))[1] - 1   # ctz(mant)
+    finest = np.where(mant != 0, np.maximum(exp, 1) - 150 + low,
+                      np.iinfo(np.int64).max).min(axis=0)
+    bound = (255.0 * np.abs(w.astype(np.float64)).sum(axis=0) +
+             np.abs(b.astype(np.float64))) * (1 + 2.0 ** -40)
+    top = np.ceil(np.log2(np.where(bound > 0, bound, 1.0))).astype(np.int64)
+    return np.where(bound > 0, top - finest, 0)
+
+
+def factor_operator(m, subsampling: str, bias=None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """(lum [192, 64] f32, chroma [G*3, 128] f32): the factors of a fused
+    mode's ``mcu_operator`` m [in, out] (numpy or a CPU tensor) that the
+    pixel kernels multiply by.
+
+    lum is the operator of one luma block, rows its in-block pixels (y, x,
+    c) row-major: every luma block of the MCU has the same one and is zero
+    outside its block. chroma holds the Cb then the Cr columns, rows the
+    chroma groups (gy, gx, c) of ``chroma_groups``: each chroma column
+    weighs a group's pixels equally, so it reads the exact integer sum of
+    the group once. Raises ValueError, naming the mode, unless m is
+    bitwise the expansion of the two, or unless every column (with its
+    bias, when given) is exact in float64 in any order (``operator_bits``
+    <= 53): nothing goes back to the dense product."""
+    mh, mw, n_in, n_out = fused_geometry(subsampling)
+    m = _operator_array(m)
+    if m.shape != (n_in, n_out):
+        raise ValueError(f"{subsampling} operator must be [{n_in}, {n_out}]"
+                         f", got {list(m.shape)}")
+    g, gy, gx = chroma_groups(subsampling)
+    n_luma = n_out // 64 - 2
+    pix = m.reshape(mh, mw, 3, n_out)
+    lum = np.ascontiguousarray(pix[:8, :8, :, :64].reshape(192, 64))
+    chroma = np.ascontiguousarray(
+        pix[::gy, ::gx, :, n_luma * 64:].reshape(g * 3, 128))
+    dense = expand_factors(lum, chroma, subsampling)
+    if not np.array_equal(dense.view(np.uint32), m.view(np.uint32)):
+        raise ValueError(f"the {subsampling} operator is not the expansion "
+                         f"of one luma block operator and {gy}x{gx} chroma "
+                         f"groups")
+    wide = int(operator_bits(m, bias).max())
+    if wide > 53:
+        raise ValueError(f"the {subsampling} operator has a column {wide} "
+                         f"bits wide: its float64 sum would not be exact")
+    return lum, chroma
+
+
+# (id of an operator, mode) -> its factors on the same device, with weak
+# references to the operator and its bias and their version counters, which
+# prove the entry is still those tensors, unmodified; the entry goes when
+# either does (EncoderTables records its factors whenever it moves). A table
+# beside the wrappers because they keep jpegtpu's signature (img, m, bias,
+# subsampling), which has no place for the factors.
+_FACTORS: dict = {}
+
+
+def remember_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str,
+                     lum: torch.Tensor, chroma: torch.Tensor) -> None:
+    """Record lum and chroma as the subsampling-mode factors of m with
+    bias, for the pixel wrappers."""
+    key = (id(m), subsampling)
+
+    def drop(_):
+        if _FACTORS.get(key) is entry:
+            del _FACTORS[key]
+
+    entry = (weakref.ref(m, drop), m._version, weakref.ref(bias, drop),
+             bias._version, lum, chroma)
+    _FACTORS[key] = entry
+
+
+def cuda_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The factors of the CUDA operator m as f32 tensors on its device:
+    those recorded for this m and this bias, both unmodified (no device
+    sync), else factored on the host from copies of the two (one sync;
+    ``factor_operator``, which checks the columns' width with this bias)
+    and recorded."""
+    hit = _FACTORS.get((id(m), subsampling))
+    if (hit is not None and hit[0]() is m and hit[1] == m._version
+            and hit[2]() is bias and hit[3] == bias._version):
+        return hit[4], hit[5]
+    lum, chroma = (torch.from_numpy(a).to(m.device)
+                   for a in factor_operator(m, subsampling, bias))
+    remember_factors(m, bias, subsampling, lum, chroma)
+    return lum, chroma
+
+
 def mcu_tiles(img: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
     """[H, W, C] (padded) -> [nMCU, mh*mw*C], MCUs in raster order."""
     h, w, ch = img.shape
@@ -183,6 +336,28 @@ def encode_blocks_pairs_plain(img: torch.Tensor, m: torch.Tensor,
     slots at [64i, 64i+64))."""
     mh, mw, _, _ = fused_geometry(subsampling)
     return _tile_product(ops.pad_to_multiple(img, (mh, mw)), m, bias, mh, mw)
+
+
+def encode_blocks_factored_plain(img: torch.Tensor, lum: torch.Tensor,
+                                 chroma: torch.Tensor, bias: torch.Tensor,
+                                 subsampling: str = "420") -> torch.Tensor:
+    """The factored product in torch, the arithmetic of K1 and K14: u8
+    [H, W, 3] and the factors of ``factor_operator`` -> int32 [nMCU, B*64],
+    equal to ``encode_blocks_pairs_plain`` of the operator they factor.
+    Each luma block's 192 pixels times lum, each MCU's chroma group sums
+    times chroma, in float64, plus the bias, rounded half away."""
+    mh, mw, _, _ = fused_geometry(subsampling)
+    g, gy, gx = chroma_groups(subsampling)
+    x = mcu_tiles(ops.pad_to_multiple(img, (mh, mw)), mh, mw).to(torch.int64)
+    n = x.shape[0]
+    luma = x.reshape(n, mh // 8, 8, mw // 8, 8, 3).permute(0, 1, 3, 2, 4, 5)
+    sums = x.reshape(n, mh // gy, gy, mw // gx, gx, 3).sum(dim=(2, 4))
+    y = torch.cat([
+        (luma.reshape(-1, 192).to(torch.float64) @ lum.to(torch.float64)
+         ).reshape(n, -1),
+        sums.reshape(n, g * 3).to(torch.float64) @ chroma.to(torch.float64)],
+        dim=1) + bias.to(torch.float64)
+    return ops.round_half_away(y).to(torch.int32)
 
 
 def dc_plane(coeffs: torch.Tensor) -> torch.Tensor:
@@ -219,14 +394,33 @@ def _cuda_operands(img, m, bias, mh, mw):
     return padded, m, bias, w // mw, (h // mh) * (w // mw)
 
 
+def _launch_factored(kernel, img, m, bias, subsampling, mh, mw, n_out,
+                     *extra):
+    """Launch K1 or K14 on the factors of the CUDA operator m: the padded
+    image at a 16-byte aligned address (the kernels' copies are 16 or 8
+    bytes), int32 [nMCU, n_out] out."""
+    padded, _, bias, nrx, n_mcu = _cuda_operands(img, m, bias, mh, mw)
+    lum, chroma = cuda_factors(m, bias, subsampling)
+    _build.check_cuda(padded, lum, chroma, bias)
+    if padded.data_ptr() % 16:
+        padded = padded.clone()
+    out = torch.empty((n_mcu, n_out), dtype=torch.int32,
+                      device=padded.device)
+    kernel.launch(padded.device, padded.data_ptr(), lum.data_ptr(),
+                  chroma.data_ptr(), bias.data_ptr(), out.data_ptr(), n_mcu,
+                  nrx, padded.shape[1] * 3, *extra)
+    return out
+
+
 def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
                         bias: torch.Tensor, subsampling: str = "420",
                         with_dc: bool = False):
     """u8 RGB [H, W, 3] -> int32 [nMCU, B*64] quantized zigzag coefficients
     of the MCUs of a fused mode, in raster MCU order, with ``m``/``bias``
     that mode's ``mcu_operator`` (jpegtpu's
-    ``encode_blocks_pallas_nat_pairs``). Launches ``csrc/pixel.cu``
-    (``jt_pixel``) on a CUDA tensor; runs the plain twin on a CPU tensor.
+    ``encode_blocks_pallas_nat_pairs``). Launches ``csrc/pixel_mma.cu``
+    (``jt_pixel``, the factored product) on a CUDA tensor; runs the plain
+    twin on a CPU tensor.
 
     with_dc: return (coeffs, dc), dc [nMCU, DC_LANES] int32 with dc[:, k]
     = coeffs[:, 64k] and the lanes >= B zero, from one launch of the
@@ -236,18 +430,17 @@ def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
     if img.device.type == "cpu":
         y = encode_blocks_pairs_plain(img, m, bias, subsampling)
         return (y, dc_plane(y)) if with_dc else y
+    if not with_dc:
+        return _launch_factored(PIXEL, img, m, bias, subsampling, mh, mw,
+                                n_out, mh, mw, chroma_groups(subsampling)[0])
     padded, m, bias, nrx, n_mcu = _cuda_operands(img, m, bias, mh, mw)
     out = torch.empty((n_mcu, n_out), dtype=torch.int32,
                       device=padded.device)
-    if not with_dc:
-        PIXEL.launch(padded.data_ptr(), m.data_ptr(), bias.data_ptr(),
-                     out.data_ptr(), n_mcu, nrx, padded.shape[1] * 3, mh, mw)
-        return out
     dc = torch.empty((n_mcu, DC_LANES), dtype=torch.int32,
                      device=padded.device)
-    PIXEL_DC_PLANE.launch(padded.data_ptr(), m.data_ptr(), bias.data_ptr(),
-                          out.data_ptr(), dc.data_ptr(), n_mcu, nrx,
-                          padded.shape[1] * 3, mh, mw)
+    PIXEL_DC_PLANE.launch(padded.device, padded.data_ptr(), m.data_ptr(),
+                          bias.data_ptr(), out.data_ptr(), dc.data_ptr(),
+                          n_mcu, nrx, padded.shape[1] * 3, mh, mw)
     return out, dc
 
 
@@ -307,7 +500,7 @@ def encode_blocks_i8_pairs(img: torch.Tensor, m: torch.Tensor,
     rows, _, nrx, row_bytes = x8.shape
     out = torch.empty((rows * nrx, n_out), dtype=torch.int32,
                       device=x8.device)
-    PIXEL_I8.launch(x8.data_ptr(), m.data_ptr(), bias.data_ptr(),
+    PIXEL_I8.launch(x8.device, x8.data_ptr(), m.data_ptr(), bias.data_ptr(),
                     out.data_ptr(), rows * nrx, nrx, nrx * row_bytes)
     return out
 
@@ -318,23 +511,18 @@ def encode_blocks_dma_pairs(img: torch.Tensor, m: torch.Tensor,
     """The "dma" route, counterpart of jpegtpu's
     ``encode_blocks_pallas_dma_pairs``: u8 [H, W, 3] -> int32 [nMCU,
     B*64]. For 4:2:0 on a CUDA tensor ``csrc/pixel_dma.cu`` reads the
-    padded u8 image where it lies and stages its own input by asynchronous
-    copies; on a CPU tensor the plain twin ``encode_blocks_pairs_plain``
-    (the same function of the same input) runs. The other modes take the
-    "xla" route, as jpegtpu's ``:306-309`` takes its XLA path."""
+    padded u8 image where it lies, brings its tiles into shared memory by
+    bulk copies and runs K1's factored product; on a CPU tensor the plain
+    twin ``encode_blocks_pairs_plain`` (the same function of the same
+    input) runs. The other modes take the "xla" route, as jpegtpu's
+    ``:306-309`` takes its XLA path."""
     mh, mw, _, n_out = operand_geometry(img, m, bias, subsampling)
     if subsampling != "420":
         return encode_blocks_matmul_pairs(img, m, bias, subsampling)
     if img.device.type == "cpu":
         return encode_blocks_pairs_plain(img, m, bias, subsampling)
-    padded, m, bias, nrx, n_mcu = _cuda_operands(img, m, bias, mh, mw)
-    if padded.data_ptr() % 16:      # cp.async copies 16 aligned bytes
-        padded = padded.clone()
-    out = torch.empty((n_mcu, n_out), dtype=torch.int32,
-                      device=padded.device)
-    PIXEL_DMA.launch(padded.data_ptr(), m.data_ptr(), bias.data_ptr(),
-                     out.data_ptr(), n_mcu, nrx, padded.shape[1] * 3)
-    return out
+    return _launch_factored(PIXEL_DMA, img, m, bias, subsampling, mh, mw,
+                            n_out)
 
 
 def encode_blocks(img: torch.Tensor, tables, subsampling: str) -> torch.Tensor:

@@ -3,9 +3,9 @@ coefficient tensor never reaches device memory (counterpart of
 ``jpegtpu.kernels.fused_pipeline``).
 
 ``fused_pixel_block_pack_pairs`` launches ``csrc/fused_px_bp.cu`` (the port
-of ``_fused_px_bp_kernel``) on a CUDA tensor: the pixel product of
-``csrc/pixel.cu``, the DC differences with their restart resets, and the
-block pack of ``csrc/block_pack.cu``, per MCU. On a CPU tensor it runs the
+of ``_fused_px_bp_kernel``) on a CUDA tensor: the dense pixel product of
+``csrc/pixel_common.cuh``, the DC differences with their restart resets,
+and the block pack of ``csrc/block_pack.cu``, per MCU. On a CPU tensor it runs the
 plain twin ``fused_pixel_block_pack_pairs_plain``, which composes the three
 stages' twins. Either way the output is word for word that of the split
 stages, zeros past each stream's length included. It covers 4:2:0, 4:2:2
@@ -93,8 +93,8 @@ def fused_pixel_block_pack_pairs(img: torch.Tensor, tables, subsampling: str,
     mwords = torch.empty((n_mcu, words), dtype=torch.int32,
                          device=padded.device)
     mlens = torch.empty((n_mcu,), dtype=torch.int32, device=padded.device)
-    FUSED_PX_BP.launch(padded.data_ptr(), m.data_ptr(), bias.data_ptr(),
-                       *(t.data_ptr() for t in luts), mwords.data_ptr(),
-                       mlens.data_ptr(), n_mcu, nrx, w * 3, restart, mh, mw,
-                       words)
+    FUSED_PX_BP.launch(padded.device, padded.data_ptr(), m.data_ptr(),
+                       bias.data_ptr(), *(t.data_ptr() for t in luts),
+                       mwords.data_ptr(), mlens.data_ptr(), n_mcu, nrx,
+                       w * 3, restart, mh, mw, words)
     return mwords, mlens

@@ -293,16 +293,64 @@ def test_stuffing_kernel_per_image_markers(dev, spi):
     assert torch.equal(buf[:int(total)], buf_p[:int(total)])
 
 
+@pytest.mark.parametrize("q", [1, 50, 90, 100])
 @pytest.mark.parametrize("mode", ["420", "422", "444", "444s"])
 @pytest.mark.parametrize("name", sorted(IMAGES))
-def test_pixel_kernel_matches_twin(dev, name, mode):
-    """Every fused geometry, with odd padding (37x53, 1x1) and MCU counts
-    that fill no whole thread block."""
+def test_pixel_kernel_matches_twin(dev, name, mode, q):
+    """K1's factored tensor-core product at every fused geometry against
+    the dense twin, with odd padding (37x53, 1x1) and MCU counts that fill
+    no whole tile."""
     img = torch.from_numpy(IMAGES[name]()).to(dev)
-    t = EncoderTables.for_quality(100, mode, dev)
-    got = fused_dctq.encode_blocks_pairs(img, t.m, t.bias, mode)
+    t = EncoderTables.for_quality(q, mode, dev)
+    got, launches = _path_launches(
+        lambda: fused_dctq.encode_blocks_pairs(img, t.m, t.bias, mode))
+    assert launches["pixel"] == 1
     want = fused_dctq.encode_blocks_pairs_plain(img, t.m, t.bias, mode)
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["420", "422", "444", "444s"])
+def test_pixel_kernel_on_a_batch_view(dev, mode):
+    """K1 on three 37x53 images padded to whole MCUs and viewed as one tall
+    image (the batch path's one launch), against the per-image twins."""
+    imgs = torch.from_numpy(np.stack([_random(37, 53, s)
+                                      for s in (11, 22, 23)])).to(dev)
+    t = EncoderTables.for_quality(90, mode, dev)
+    padded = ops.pad_to_multiple(imgs, ops.mcu_shape(mode))
+    got = fused_dctq.encode_blocks_pairs(
+        padded.reshape(-1, *padded.shape[2:]), t.m, t.bias, mode)
+    want = torch.cat([fused_dctq.encode_blocks_pairs_plain(
+        im, t.m, t.bias, mode) for im in imgs])
+    assert torch.equal(got, want)
+
+
+def test_pixel_kernel_refuses_an_operator_that_does_not_factor(dev):
+    """An operator that is not the expansion of its factors raises on the
+    card: nothing falls back to the dense product or to the CPU."""
+    img = torch.from_numpy(IMAGES["odd_37x53"]()).to(dev)
+    t = EncoderTables.for_quality(90, "420", dev)
+    m = t.m.clone()
+    m[5, 300] += 1.0                  # a chroma weight off its 2x2 group
+    for fn in (fused_dctq.encode_blocks_pairs,
+               fused_dctq.encode_blocks_dma_pairs):
+        with pytest.raises(ValueError, match="420"):
+            fn(img, m, t.bias, "420")
+
+
+# Images whose MCU count leaves the last tile of K1 short in every geometry
+# (tiles of 32 MCUs at 4:2:0, 96 at 4:2:2, 64 at 4:4:4, 128 at 4:4:4s), with
+# MCU rows that cross tiles, and more tiles than one grid sweep covers.
+SHORT_TILE_SHAPES = [(48, 520), (72, 200), (1400, 1608)]
+
+
+@pytest.mark.parametrize("shape", SHORT_TILE_SHAPES)
+@pytest.mark.parametrize("mode", ["420", "422", "444", "444s"])
+def test_pixel_kernel_short_last_tile(dev, mode, shape):
+    img = torch.from_numpy(_random(*shape, sum(shape))).to(dev)
+    t = EncoderTables.for_quality(75, mode, dev)
+    got = fused_dctq.encode_blocks_pairs(img, t.m, t.bias, mode)
+    want = fused_dctq.encode_blocks_pairs_plain(img, t.m, t.bias, mode)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("kind", ["dense", "sparse"])
@@ -445,9 +493,10 @@ def _strip_images():
     return out
 
 
+@pytest.mark.parametrize("q", [1, 50, 90, 100])
 @pytest.mark.parametrize("route", ["i8", "dma"])
-def test_i8_and_dma_kernels_match_twin(dev, route):
-    t = EncoderTables.for_quality(90, "420", dev)
+def test_i8_and_dma_kernels_match_twin(dev, route, q):
+    t = EncoderTables.for_quality(q, "420", dev)
     fn = {"i8": fused_dctq.encode_blocks_i8_pairs,
           "dma": fused_dctq.encode_blocks_dma_pairs}[route]
     for name, img in _strip_images().items():

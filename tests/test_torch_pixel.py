@@ -63,6 +63,23 @@ def test_pixel_twin_matches_pallas_kernel_interpret():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("view", ["image", "batch_view"])
+def test_factored_plain_matches_pallas_kernel_interpret(view):
+    """The factored product of K1 and K14 (the luma block operator on each
+    block's pixels, the chroma factor on the exact 2x2 group sums), in
+    torch, gives the TPU pixel kernel's coefficients on the same 64x128
+    image and batch of its halves (the compile the test above jits)."""
+    img = _random(64, 128, 3)
+    halves = np.stack([img[:32], img[32:]])
+    want = np.asarray(_pallas_pairs(jnp.asarray(halves), 90, "420",
+                                    with_dc=False)).reshape(-1, 384)
+    x = img if view == "image" else halves.reshape(64, 128, 3)
+    t = EncoderTables.for_quality(90)
+    got = t_fused_dctq.encode_blocks_factored_plain(torch.from_numpy(x),
+                                                    t.lum, t.chroma, t.bias)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("shape", [(37, 53), (16, 16), (5, 7), (16, 3),
                                    (30, 17), (1, 1)])
 def test_pad_to_multiple_matches(shape):
