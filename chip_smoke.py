@@ -82,11 +82,15 @@ BATCH = 8                  # images of GOLDEN_SHAPE in the batch paths
 # selectors).
 PROFILED = (("420", "rows", {}), ("420", 0, {}), ("420", 7, {}),
             ("420", 1, {}), ("444", 1, {}), ("420", "rows", {"fuse_bp": True}),
-            ("420", "rows", {"pixel_path": "dma"}))
+            ("420", "rows", {"pixel_path": "dma"}),
+            ("420", "rows", {"pixel_dc": True}))
 TIMING_REPS = 20
-# Qualities at which phase 3 holds K1 (every geometry) and K14 against the
-# dense twin.
+# Qualities at which phase 3 holds K1 and K12 (every geometry), K13 and K14
+# (4:2:0) against the dense twin.
 PIXEL_QUALITIES = (1, 50, 90, 100)
+# What a buffer holds before a kernel writes it, where a check must show
+# that every value was written.
+SENTINEL = 0x7FFFFFFF
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float64 FLOP/s (the tensor-core rate, the card's highest for float64).
 HBM_BYTES_PER_S = 3.35e12
@@ -339,7 +343,9 @@ def main() -> int:
     klib.jt_pixel_smem.argtypes = [ctypes.c_int] * 3
     klib.jt_pixel_smem.restype = klib.jt_pixel_dma_smem.restype = ctypes.c_int
     klib.jt_pixel_dma_smem.argtypes = []
-    # K1 (four geometries) and K14: registers, spills and shared memory.
+    # K1, K12 (four geometries each), K13 and K14: registers, spills and
+    # shared memory; pixel_mma_kernel's last two template arguments are
+    # kI8 (K13) and kDc (K12).
     for kernel, props in ptxas_entries(build_log, ("pixel_mma_kernel",
                                                    "pixel_dma_kernel")):
         dims = tuple(int(v) for v in re.findall(r"Li(\d+)E", kernel))
@@ -428,27 +434,69 @@ def main() -> int:
     n_bad, errs["pixel"] = diff(coeffs, coeffs_p)
     report(f"K1 pixel 420 coefficients {tuple(coeffs.shape)}", n_bad,
            errs["pixel"])
-    # K1's factored tensor-core product in every geometry and K14's
-    # (bulk copies) at 4:2:0, at the qualities PIXEL_QUALITIES, against the
-    # dense twin.
-    errs["pixel_dma"] = 0
+    # The factored tensor-core product at the qualities PIXEL_QUALITIES
+    # against the dense twin: K1 and K12 (its DC plane too) in every
+    # geometry, K13 (the int8 view) and K14 (bulk copies) at 4:2:0.
+    errs.update(pixel_dc=0, pixel_i8=0, pixel_dma=0)
+
+    def with_dc(img_, m_, bias_, sub_):
+        return fused_dctq.encode_blocks_pairs(img_, m_, bias_, sub_,
+                                              with_dc=True)
+
     for q in PIXEL_QUALITIES:
         for sub in ("420", "422", "444", "444s"):
             t = (tabs[sub] if q == QUALITY
                  else EncoderTables.for_quality(q, sub, dev))
             c_p = fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias, sub)
-            routes = {"K1": (fused_dctq.encode_blocks_pairs, "pixel")}
+            routes = {"K1": (fused_dctq.encode_blocks_pairs, "pixel"),
+                      "K12": (with_dc, "pixel_dc")}
             if sub == "420":
+                routes["K13"] = (fused_dctq.encode_blocks_i8_pairs,
+                                 "pixel_i8")
                 routes["K14"] = (fused_dctq.encode_blocks_dma_pairs,
                                  "pixel_dma")
             for label, (fn, err_key) in routes.items():
-                c_k = fn(x, t.m, t.bias, sub)
+                got = fn(x, t.m, t.bias, sub)
+                c_k, dc_k = got if isinstance(got, tuple) else (got, None)
                 n_bad, e = diff(c_k, c_p)
+                what = f"coefficients {tuple(c_k.shape)}"
+                if dc_k is not None:
+                    n_d, e_d = diff(dc_k, fused_dctq.dc_plane(c_p))
+                    n_bad, e = n_bad + n_d, max(e, e_d)
+                    what += f" + DC plane {tuple(dc_k.shape)}"
                 errs[err_key] = max(errs[err_key], e)
-                report(f"{label} factored pixel {sub} q{q} coefficients "
-                       f"{tuple(c_k.shape)} against the dense twin", n_bad, e)
-                del c_k
+                report(f"{label} factored pixel {sub} q{q} {what} against "
+                       f"the dense twin", n_bad, e)
+                del got, c_k, dc_k
             del c_p
+
+    # K12 launched directly onto buffers filled with SENTINEL and one MCU
+    # row longer than the image, in every geometry: every coefficient and
+    # plane lane of the image's MCUs is written (the zero lanes too), and
+    # nothing past them.
+    for sub in ("420", "422", "444", "444s"):
+        t = tabs[sub]
+        mh, mwid, _, n_out = fused_dctq.fused_geometry(sub)
+        nm, nrx_ = (h // mh) * (w // mwid), w // mwid
+        out_s = torch.full((nm + nrx_, n_out), SENTINEL, dtype=torch.int32,
+                           device=dev)
+        dc_s = torch.full((nm + nrx_, fused_dctq.DC_LANES), SENTINEL,
+                          dtype=torch.int32, device=dev)
+        lum, chroma = fused_dctq.cuda_factors(t.m, t.bias, sub)
+        fused_dctq.PIXEL_DC_PLANE.launch(
+            dev, x.data_ptr(), lum.data_ptr(), chroma.data_ptr(),
+            t.bias.data_ptr(), out_s.data_ptr(), dc_s.data_ptr(), nm, nrx_,
+            w * 3, mh, mwid, fused_dctq.chroma_groups(sub)[0])
+        c_p = fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias, sub)
+        n_c, e_c = diff(out_s[:nm], c_p)
+        n_d, e_d = diff(dc_s[:nm], fused_dctq.dc_plane(c_p))
+        n_past = int((out_s[nm:] != SENTINEL).sum() +
+                     (dc_s[nm:] != SENTINEL).sum())
+        report(f"K12 jt_pixel_dc {sub} onto sentinel buffers of {nm} + "
+               f"{nrx_} MCUs: coefficients + DC plane of the {nm}, and "
+               f"{n_past} values written past them", n_c + n_d + n_past,
+               max(e_c, e_d))
+        del out_s, dc_s, c_p
 
     dcd = scan.dc_diffs_from_dc(coeffs[:, ::64], 4, restart).reshape(-1)
     cls = (torch.arange(n_mcu * 6, device=dev) % 6 >= 4).to(torch.int32)
@@ -553,25 +601,15 @@ def main() -> int:
                f"{tuple(fl.shape)} + masked words {tuple(fw.shape)}; "
                f"{n_whole} whole words differ", n_bad + n_whole, e)
         del fw, fl, fw_p, fl_p
-    errs["pixel_dc"] = 0
-    for sub in ("420", "422", "444"):
-        t = tabs[sub]
-        c_k, dc_k = fused_dctq.encode_blocks_pairs(x, t.m, t.bias, sub,
-                                                   with_dc=True)
-        c_p = fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias, sub)
-        n_c, e_c = diff(c_k, c_p)
-        n_d, e_d = diff(dc_k, fused_dctq.dc_plane(c_p))
-        errs["pixel_dc"] = max(errs["pixel_dc"], e_c, e_d)
-        report(f"K12 pixel + DC plane {sub}: coefficients "
-               f"{tuple(c_k.shape)} + plane {tuple(dc_k.shape)}", n_c + n_d,
-               max(e_c, e_d))
-        del c_k, dc_k, c_p
+    # K12 is held above, in every geometry; K13 also against its own twin,
+    # which restores + 128 from the view.
     x8 = fused_dctq.i8_view(x)
-    n_bad, errs["pixel_i8"] = diff(
+    n_bad, e = diff(
         fused_dctq.encode_blocks_i8_pairs(x, tables.m, tables.bias),
         fused_dctq.pixel_i8_plain(x8, tables.m, tables.bias))
+    errs["pixel_i8"] = max(errs["pixel_i8"], e)
     report(f"K13 i8-view pixel 420 coefficients from the view "
-           f"{tuple(x8.shape)}", n_bad, errs["pixel_i8"])
+           f"{tuple(x8.shape)} against the i8 twin", n_bad, e)
 
     # 4. Every path end to end, through the public entry point, each with
     # the launch counts set to 0 just before it and read just after.
@@ -598,9 +636,9 @@ def main() -> int:
                 "seg_merge_v1.cu", "jpegtpu/kernels/entropy_oracles.py:266"),
                ("fused_px_bp", fused_pipeline.FUSED_PX_BP, "fused_px_bp.cu",
                 "jpegtpu/kernels/fused_pipeline.py:57"),
-               ("pixel_dc", fused_dctq.PIXEL_DC_PLANE, "pixel.cu",
+               ("pixel_dc", fused_dctq.PIXEL_DC_PLANE, "pixel_mma.cu",
                 "jpegtpu/kernels/fused_dctq.py:358"),
-               ("pixel_i8", fused_dctq.PIXEL_I8, "pixel.cu",
+               ("pixel_i8", fused_dctq.PIXEL_I8, "pixel_mma.cu",
                 "jpegtpu/kernels/fused_dctq.py:128"),
                ("pixel_dma", fused_dctq.PIXEL_DMA, "pixel_dma.cu",
                 "jpegtpu/kernels/fused_dctq.py:246"))
@@ -960,6 +998,11 @@ def main() -> int:
                 x, t.m, t.bias, sub),
             lambda t=t, sub=sub: fused_dctq.encode_blocks_pairs_plain(
                 x, t.m, t.bias, sub))
+        pairs[f"pixel_dc {sub}"] = (
+            lambda t=t, sub=sub: fused_dctq.encode_blocks_pairs(
+                x, t.m, t.bias, sub, with_dc=True),
+            lambda t=t, sub=sub: fused_dctq.dc_plane(
+                fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias, sub)))
     times = {}
     for label, (kern, plain) in pairs.items():
         # plain, kernel, kernel, plain: compare within one call, in turns
@@ -969,11 +1012,12 @@ def main() -> int:
         line(f"{label} kernel (wrapper + glue)", times[label][0])
         line(f"{label} plain twin", times[label][1])
     # The pixel kernels at 4:2:0 alone (profiler), by their template
-    # arguments: K1, K12 (its DC plane), K13 (int8 input), K14, K11.
+    # arguments: K1, K12 (kDc, its DC plane), K13 (kI8, int8 input), K14,
+    # K11.
     pixel_keys = {
-        "pixel": ("pixel_mma_kernel<16, 16, 64, 32>",),
-        "pixel_dc": ("pixel_kernel<16, 16, 384, 8, unsigned char, true>",),
-        "pixel_i8": ("pixel_kernel<16, 16, 384, 8, signed char, false>",),
+        "pixel": ("pixel_mma_kernel<16, 16, 64, 32, false, false>",),
+        "pixel_dc": ("pixel_mma_kernel<16, 16, 64, 32, false, true>",),
+        "pixel_i8": ("pixel_mma_kernel<16, 16, 64, 32, true, false>",),
         "pixel_dma": ("pixel_dma_kernel(",),
         "fused_px_bp": ("fused_px_bp_kernel<16, 16, 384, 7>",)}
     for n, keys in pixel_keys.items():
@@ -1070,22 +1114,53 @@ def main() -> int:
         line(f"pixel {sub} library: float64 torch.matmul {tuple(tiles.shape)}"
              f" x {tuple(m64.shape)}", library[sub])
         del tiles
-    # K1 and K14 (the factored tensor-core product) beside K12, which still
-    # runs the dense CUDA-core body and stands in for the old K1, and the
-    # library call, in turns in one call: K12, K1, K14, library, then the
-    # same in reverse; wrappers with their glue (CUDA events).
+    # K1, K12, K13 and K14 (the factored tensor-core product) and the
+    # library call, in turns in one call: in order, then in reverse.
+    # Wrappers with their glue (K13's: the int8 view's XOR pass), then the
+    # kernels alone: each launcher on operands made once (the library call
+    # on tiles gathered once). CUDA events.
     tiles = fused_dctq.mcu_tiles(x, 16, 16).to(torch.float64)
     m64 = tables.m.to(torch.float64)
-    turns = {"K12 jt_pixel_dc (dense body)": pairs["pixel_dc"][0],
-             "K1 jt_pixel (factored)": pairs["pixel"][0],
-             "K14 jt_pixel_dma (factored, bulk copies)": pairs["pixel_dma"][0],
-             "library float64 torch.matmul": lambda: torch.matmul(tiles, m64)}
-    there = {k: time_ms(f) for k, f in turns.items()}
-    back = {k: time_ms(f) for k, f in reversed(list(turns.items()))}
-    for k in turns:
-        print(f"[time] pixel product in turns, 420 {w}x{h}: {k}: "
-              f"{there[k]:.4f} / {back[k]:.4f} ms  [{card}]")
-    del tiles, m64
+    lum, chroma = fused_dctq.cuda_factors(tables.m, tables.bias, "420")
+    out_a = torch.empty((n_mcu, 384), dtype=torch.int32, device=dev)
+    dc_a = torch.empty((n_mcu, fused_dctq.DC_LANES), dtype=torch.int32,
+                       device=dev)
+    x8 = fused_dctq.i8_view(x)
+    head = (lum.data_ptr(), chroma.data_ptr(), tables.bias.data_ptr(),
+            out_a.data_ptr())
+    tail = (n_mcu, mx, w * 3)
+    library_call = ("library float64 torch.matmul",
+                    lambda: torch.matmul(tiles, m64))
+    in_turns = {
+        "wrappers": dict([
+            ("K1 jt_pixel", pairs["pixel"][0]),
+            ("K12 jt_pixel_dc", pairs["pixel_dc"][0]),
+            ("K13 jt_pixel_i8", pairs["pixel_i8"][0]),
+            ("K14 jt_pixel_dma (bulk copies)", pairs["pixel_dma"][0]),
+            library_call]),
+        "kernels alone": dict([
+            ("K1 jt_pixel", lambda: fused_dctq.PIXEL.launch(
+                dev, x.data_ptr(), *head, *tail, 16, 16, 64)),
+            ("K12 jt_pixel_dc", lambda: fused_dctq.PIXEL_DC_PLANE.launch(
+                dev, x.data_ptr(), *head, dc_a.data_ptr(), *tail, 16, 16,
+                64)),
+            ("K13 jt_pixel_i8", lambda: fused_dctq.PIXEL_I8.launch(
+                dev, x8.data_ptr(), *head, *tail)),
+            ("K14 jt_pixel_dma (bulk copies)",
+             lambda: fused_dctq.PIXEL_DMA.launch(dev, x.data_ptr(), *head,
+                                                 *tail)),
+            library_call])}
+    for what, turns in in_turns.items():
+        there = {k: time_ms(f) for k, f in turns.items()}
+        back = {k: time_ms(f) for k, f in reversed(list(turns.items()))}
+        for k in turns:
+            print(f"[time] pixel product in turns, {what}, 420 {w}x{h}: "
+                  f"{k}: {there[k]:.4f} / {back[k]:.4f} ms  [{card}]")
+    if not (torch.equal(out_a, coeffs_p) and
+            torch.equal(dc_a, fused_dctq.dc_plane(coeffs_p))):
+        raise AssertionError("the kernels timed alone disagree with the "
+                             "dense twin")
+    del tiles, m64, out_a, dc_a, x8
     # The host's cost of one launch: Kernel.launch (the operands' device
     # made current, its stream looked up) against the bare launcher on the
     # current stream, K1 on one MCU, 200 launches a turn in turns (A B B A,
@@ -1116,10 +1191,12 @@ def main() -> int:
               f"(turns {', '.join(f'{u:.2f}' for u in v)})  [{card}]")
     for sub, dims in (("422", "8, 16, 64, 96"), ("444", "8, 8, 64, 64"),
                       ("444s", "8, 8, 16, 128")):
-        alone = kernel_device_ms(pairs[f"pixel {sub}"][0],
-                                 f"pixel_mma_kernel<{dims}>")
-        print(f"[time] pixel kernel alone (profiler), {sub} {w}x{h}: "
-              f"{alone} ms  [{card}]")
+        for n, dc_arg in (("pixel", "false"), ("pixel_dc", "true")):
+            alone = kernel_device_ms(
+                pairs[f"{n} {sub}"][0],
+                f"pixel_mma_kernel<{dims}, false, {dc_arg}>")
+            print(f"[time] {n} kernel alone (profiler), {sub} {w}x{h}: "
+                  f"{alone} ms  [{card}]")
 
     def device_path(image, sub, r, kw):
         """One device encode of a path with the selectors kw (no fetch)."""

@@ -2,7 +2,7 @@
 // Huffman-coded bitstream (big-endian u32 words, MSB first, zero past its
 // length) and its bit length, with the DC differences computed in the
 // kernel, so that the coefficients never reach device memory. Word for word
-// the output of pixel.cu, the DC glue (scan.dc_diffs_from_dc) and
+// the output of pixel_mma.cu, the DC glue (scan.dc_diffs_from_dc) and
 // block_pack.cu in turn; 4:2:0, 4:2:2 and 4:4:4 (g = 6, 4, 3 blocks).
 //
 // Replaces jpegtpu/kernels/fused_pipeline.py:_fused_px_bp_kernel (called
@@ -19,14 +19,14 @@
 // (restart > 0) or at MCU 0 alone (restart 0), jpegtpu's reset_every.
 //
 // One block: its kOut threads compute kMcus + 1 MCUs into registers (the
-// pixel product of pixel.cu), then the pixel staging region (48 KiB) is
-// reused for the coefficients, the halo's DC values, the Huffman LUTs and
-// one stream buffer per warp, and one warp per MCU symbolizes and packs
-// its g blocks as block_pack.cu does (block_pack.cuh).
+// dense product, pixel_common.cuh's mcu_product), then the pixel staging
+// region (48 KiB) is reused for the coefficients, the halo's DC values, the
+// Huffman LUTs and one stream buffer per warp, and one warp per MCU
+// symbolizes and packs its g blocks as block_pack.cu does (block_pack.cuh).
 //
-// Bound: the float64 FMAs of the product (one MCU in kMcus + 1 is the
-// halo's), as in pixel.cu; the coefficient tensor (49.8 MB at 3840x2160
-// 4:2:0) is neither written nor read back.
+// Bound: the float64 FMAs of the dense product (one MCU in kMcus + 1 is
+// the halo's); the coefficient tensor (49.8 MB at 3840x2160 4:2:0) is
+// neither written nor read back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

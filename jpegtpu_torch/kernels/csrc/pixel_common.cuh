@@ -1,12 +1,12 @@
 // The pixel products shared by the pixel kernels.
 //
-// mcu_product (pixel.cu's K12 and K13, fused_px_bp.cu's K11): one MCU's
-// quantized zigzag coefficients are round_half_away(tile[kIn] . M[kIn, kOut]
-// + bias), each thread one column of the dense operator M, one CUDA-core
-// float64 fma per term.
+// mcu_product (fused_px_bp.cu's K11 alone): one MCU's quantized zigzag
+// coefficients are round_half_away(tile[kIn] . M[kIn, kOut] + bias), each
+// thread one column of the dense operator M, one CUDA-core float64 fma per
+// term.
 //
-// The factored product (pixel_mma.cu's K1, pixel_dma.cu's K14): the same
-// coefficients from the two factors of M that
+// The factored product (pixel_mma.cu's K1, K12 and K13, pixel_dma.cu's
+// K14): the same coefficients from the two factors of M that
 // jpegtpu_torch.kernels.fused_dctq.factor_operator checks M against, on the
 // float64 tensor cores (mma.sync m16n8k8 .f64):
 //   luma    [n_mcu * kLuma, 192] x lum [192, 64]: one row per 8x8 luma block,
@@ -80,6 +80,8 @@ __device__ __forceinline__ int32_t round_half_away(double a) {
 
 // Devices whose launch setup a launcher keeps (per-device tables).
 constexpr int kMaxDevices = 64;
+// Lanes of a DC-plane row (K12): lane k the DC of block k, the rest zero.
+constexpr int kDcLanes = 8;
 
 template <int kMh, int kMw, int kGroups, int kTileMcus>
 struct Factored {
@@ -90,7 +92,8 @@ struct Factored {
   static constexpr int kStripRow = kTile * kRowBytes;   // one tile row
   static constexpr int kTileBytes = kMh * kStripRow;    // one tile's pixels
   static constexpr int kLuma = (kMh / 8) * (kMw / 8);   // luma blocks / MCU
-  static constexpr int kOut = (kLuma + 2) * 64;
+  static constexpr int kBlocks = kLuma + 2;             // blocks / MCU
+  static constexpr int kOut = kBlocks * 64;
   static constexpr int kSide = kGroups == 64 ? 8 : 4;   // groups a side
   static constexpr int kGy = kMh / kSide, kGx = kMw / kSide;
   static constexpr int kChromaK = kGroups * 3;
@@ -230,11 +233,14 @@ __device__ __forceinline__ void warp_gemm(double (&acc)[2][4][4], Load load,
 
 // Bias, round half away, and the coefficients of one warp tile into out
 // [n_mcu, kOut] int32: row r of the tile is MCU m0 + k0 + r, column c is
-// output column col0 + c.
-template <typename F>
+// output column col0 + c. With kDc, also the DC plane dc [n_mcu, kDcLanes]:
+// the lane that rounds column 64k (nt 0, t 0, col0 a multiple of 64) writes
+// lane k, and the one of the last block also the zero lanes kBlocks..7.
+template <typename F, bool kDc>
 __device__ __forceinline__ void store_tile(const double (&acc)[2][4][4],
                                            const float* __restrict__ bias,
                                            int32_t* __restrict__ out,
+                                           int32_t* __restrict__ dc,
                                            long long m0, int k0, int col0,
                                            long long n_mcu, int lane) {
   const int g = lane >> 2, t = lane & 3;
@@ -252,6 +258,16 @@ __device__ __forceinline__ void store_tile(const double (&acc)[2][4][4],
               round_half_away(acc[mt][nt][2 * h] + (double)b.x),
               round_half_away(acc[mt][nt][2 * h + 1] + (double)b.y));
           *reinterpret_cast<int2*>(out + mcu * F::kOut + col) = q;
+          if constexpr (kDc) {
+            if (nt == 0 && t == 0 && col0 % 64 == 0) {
+              const int blk = col0 / 64;
+              int32_t* row = dc + mcu * kDcLanes;
+              row[blk] = q.x;
+              if (blk == F::kBlocks - 1) {
+                for (int k = F::kBlocks; k < kDcLanes; ++k) row[k] = 0;
+              }
+            }
+          }
         }
       }
   }
@@ -261,12 +277,13 @@ __device__ __forceinline__ void store_tile(const double (&acc)[2][4][4],
 // n_mcu are computed and not stored): warp `warp` of `warps` takes warp
 // tiles warp, warp + warps, ...; luma tiles first (block-major: tile rows
 // are 32 MCUs of one luma block, then the 32-column half), then chroma.
-template <typename F>
+// With kDc, the DC plane into dc as well (store_tile).
+template <typename F, bool kDc = false>
 __device__ __forceinline__ void tile_product(
     const uint8_t* px, const uint16_t* sums, const float4* lum_f,
     const float4* chroma_f, const float* __restrict__ bias,
     int32_t* __restrict__ out, long long m0, long long n_mcu, int warp,
-    int warps, int lane) {
+    int warps, int lane, int32_t* __restrict__ dc = nullptr) {
   const int g = lane >> 2, t = lane & 3;
   double acc[2][4][4];
   for (int w = warp; w < F::kWarpTiles; w += warps) {
@@ -288,8 +305,8 @@ __device__ __forceinline__ void tile_product(
           v[i] = small_to_f64(__byte_perm(word, 0, 0x4440 + i));
       };
       warp_gemm<12, 8>(acc, load, lum_f + half * 4 * 32 + lane);
-      store_tile<F>(acc, bias, out, m0, k0, blk * 64 + half * 32, n_mcu,
-                    lane);
+      store_tile<F, kDc>(acc, bias, out, dc, m0, k0, blk * 64 + half * 32,
+                         n_mcu, lane);
     } else {
       const int c = w - F::kLumaTiles, k0 = (c >> 2) * 32, quarter = c & 3;
       const uint16_t* base = sums + (k0 + g) * F::kSumStride;
@@ -303,8 +320,8 @@ __device__ __forceinline__ void tile_product(
       };
       warp_gemm<F::kChromaK / 16, 16>(acc, load,
                                       chroma_f + quarter * 4 * 32 + lane);
-      store_tile<F>(acc, bias, out, m0, k0, F::kLuma * 64 + quarter * 32,
-                    n_mcu, lane);
+      store_tile<F, kDc>(acc, bias, out, dc, m0, k0,
+                         F::kLuma * 64 + quarter * 32, n_mcu, lane);
     }
   }
 }

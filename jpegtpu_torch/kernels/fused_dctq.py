@@ -18,10 +18,10 @@ and one library route, each the counterpart of one jpegtpu function:
 
     encode_blocks_pairs           csrc/pixel_mma.cu jt_pixel (K1,
                                   _pixel_kernel_nat); "nat"
-    encode_blocks_pairs(with_dc)  csrc/pixel.cu jt_pixel_dc (K12,
+    encode_blocks_pairs(with_dc)  csrc/pixel_mma.cu jt_pixel_dc (K12,
                                   _pixel_kernel_nat_dc), the DC plane too;
                                   "nat" when ``PIXEL_DC`` is set
-    encode_blocks_i8_pairs        csrc/pixel.cu jt_pixel_i8 (K13,
+    encode_blocks_i8_pairs        csrc/pixel_mma.cu jt_pixel_i8 (K13,
                                   _pixel_kernel, encode_blocks_pallas_pairs)
     encode_blocks_dma_pairs       csrc/pixel_dma.cu (K14, _pixel_kernel_dma,
                                   encode_blocks_pallas_dma_pairs); "dma"
@@ -33,12 +33,17 @@ the plain twin (``encode_blocks_pairs_plain``, ``dc_plane``,
 ``pixel_i8_plain``). K13 and K14 exist for 4:2:0 alone, as in jpegtpu;
 their wrappers give the other modes to the "xla" route, as jpegtpu's do.
 
-K1 and K14 multiply by the operator's two factors (``factor_operator``):
-one luma block's operator lum [192, 64], the same for every luma block,
-and chroma [G*3, 128] over the exact integer sums of the chroma groups,
-on the float64 tensor cores; ``encode_blocks_factored_plain`` is that
-arithmetic in torch. They get the factors of a CUDA operator from
-``EncoderTables``, which factors its operator on the host when it is made.
+K1, K12, K13 and K14 multiply by the operator's two factors
+(``factor_operator``): one luma block's operator lum [192, 64], the same
+for every luma block, and chroma [G*3, 128] over the exact integer sums of
+the chroma groups, on the float64 tensor cores; K1, K12 and K13 are one
+kernel body (K12 adds the DC plane to its epilogue, K13 XORs the int8
+view back to u8 as it stages it), and only the fused K11
+(``fused_pipeline``) keeps the dense product.
+``encode_blocks_factored_plain`` is the factored arithmetic in torch. The
+wrappers get the factors of a CUDA operator from ``EncoderTables``, which
+factors its operator on the host when it is made; one that does not
+factor raises.
 
 The product accumulates in float64. jpegtpu's f32 product on CPU and an f32
 product summed in any other order disagree on a few coefficients that sit
@@ -68,12 +73,13 @@ PIXEL = _build.Kernel("jt_pixel", [
     _build.I64, _build.I64, _build.I64,               # n_mcu, nrx, row_bytes
     _build.I32, _build.I32, _build.I32])              # MCU h, w, groups
 PIXEL_DC_PLANE = _build.Kernel("jt_pixel_dc", [
-    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img, m, bias, out
-    _build.PTR,                                       # dc
+    _build.PTR, _build.PTR, _build.PTR,               # img, lum, chroma
+    _build.PTR, _build.PTR, _build.PTR,               # bias, out, dc
     _build.I64, _build.I64, _build.I64,               # n_mcu, nrx, row_bytes
-    _build.I32, _build.I32])                          # MCU height, width
+    _build.I32, _build.I32, _build.I32])              # MCU h, w, groups
 PIXEL_I8 = _build.Kernel("jt_pixel_i8", [
-    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # img (i8), m, bias, out
+    _build.PTR, _build.PTR, _build.PTR,               # img (i8), lum, chroma
+    _build.PTR, _build.PTR,                           # bias, out
     _build.I64, _build.I64, _build.I64])              # n_mcu, nrx, row_bytes
 PIXEL_DMA = _build.Kernel("jt_pixel_dma", [
     _build.PTR, _build.PTR, _build.PTR,               # img, lum, chroma
@@ -341,9 +347,10 @@ def encode_blocks_pairs_plain(img: torch.Tensor, m: torch.Tensor,
 def encode_blocks_factored_plain(img: torch.Tensor, lum: torch.Tensor,
                                  chroma: torch.Tensor, bias: torch.Tensor,
                                  subsampling: str = "420") -> torch.Tensor:
-    """The factored product in torch, the arithmetic of K1 and K14: u8
-    [H, W, 3] and the factors of ``factor_operator`` -> int32 [nMCU, B*64],
-    equal to ``encode_blocks_pairs_plain`` of the operator they factor.
+    """The factored product in torch, the arithmetic of K1, K12, K13 and
+    K14: u8 [H, W, 3] and the factors of ``factor_operator`` -> int32
+    [nMCU, B*64], equal to ``encode_blocks_pairs_plain`` of the operator
+    they factor.
     Each luma block's 192 pixels times lum, each MCU's chroma group sums
     times chroma, in float64, plus the bias, rounded half away."""
     mh, mw, _, _ = fused_geometry(subsampling)
@@ -383,33 +390,31 @@ def operand_geometry(img: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
     return mh, mw, n_in, n_out
 
 
-def _cuda_operands(img, m, bias, mh, mw):
-    """(padded image, f32 m, f32 bias, nrx, n_mcu) as contiguous CUDA
-    tensors for a pixel kernel."""
-    padded = ops.pad_to_multiple(img, (mh, mw)).contiguous()
-    m = m.to(torch.float32).contiguous()
+def _launch_factored(kernel, padded, m, bias, subsampling, *extra,
+                     with_dc=False):
+    """Launch K1, K12, K13 or K14 on the factors of the CUDA operator m:
+    padded [H, W, 3] whole MCUs of a fused mode (u8, or K13's int8 view
+    reshaped to it, the same bytes), contiguous at a 16-byte aligned
+    address (the kernels' copies are 16 or 8 bytes), int32 [nMCU, B*64]
+    out and, with_dc, the DC plane [nMCU, DC_LANES] (returns (out, dc))."""
+    mh, mw, _, n_out = fused_geometry(subsampling)
+    padded = padded.contiguous()
     bias = bias.to(torch.float32).contiguous()
-    _build.check_cuda(padded, m, bias)
-    h, w, _ = padded.shape
-    return padded, m, bias, w // mw, (h // mh) * (w // mw)
-
-
-def _launch_factored(kernel, img, m, bias, subsampling, mh, mw, n_out,
-                     *extra):
-    """Launch K1 or K14 on the factors of the CUDA operator m: the padded
-    image at a 16-byte aligned address (the kernels' copies are 16 or 8
-    bytes), int32 [nMCU, n_out] out."""
-    padded, _, bias, nrx, n_mcu = _cuda_operands(img, m, bias, mh, mw)
+    _build.check_cuda(padded, m.to(torch.float32).contiguous(), bias)
     lum, chroma = cuda_factors(m, bias, subsampling)
     _build.check_cuda(padded, lum, chroma, bias)
     if padded.data_ptr() % 16:
         padded = padded.clone()
+    h, w, _ = padded.shape
+    n_mcu = (h // mh) * (w // mw)
     out = torch.empty((n_mcu, n_out), dtype=torch.int32,
                       device=padded.device)
+    dc = [torch.empty((n_mcu, DC_LANES), dtype=torch.int32,
+                      device=padded.device)] if with_dc else []
     kernel.launch(padded.device, padded.data_ptr(), lum.data_ptr(),
-                  chroma.data_ptr(), bias.data_ptr(), out.data_ptr(), n_mcu,
-                  nrx, padded.shape[1] * 3, *extra)
-    return out
+                  chroma.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                  *(d.data_ptr() for d in dc), n_mcu, w // mw, w * 3, *extra)
+    return (out, *dc) if with_dc else out
 
 
 def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
@@ -424,24 +429,17 @@ def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
 
     with_dc: return (coeffs, dc), dc [nMCU, DC_LANES] int32 with dc[:, k]
     = coeffs[:, 64k] and the lanes >= B zero, from one launch of the
-    DC-plane kernel (``jt_pixel_dc``). jpegtpu gives no plane (None) when
-    its kernel's lane rule refuses the width; the port has no such rule."""
-    mh, mw, _, n_out = operand_geometry(img, m, bias, subsampling)
+    DC-plane kernel (``jt_pixel_dc``, the same product). jpegtpu gives no
+    plane (None) when its kernel's lane rule refuses the width; the port
+    has no such rule."""
+    mh, mw, _, _ = operand_geometry(img, m, bias, subsampling)
     if img.device.type == "cpu":
         y = encode_blocks_pairs_plain(img, m, bias, subsampling)
         return (y, dc_plane(y)) if with_dc else y
-    if not with_dc:
-        return _launch_factored(PIXEL, img, m, bias, subsampling, mh, mw,
-                                n_out, mh, mw, chroma_groups(subsampling)[0])
-    padded, m, bias, nrx, n_mcu = _cuda_operands(img, m, bias, mh, mw)
-    out = torch.empty((n_mcu, n_out), dtype=torch.int32,
-                      device=padded.device)
-    dc = torch.empty((n_mcu, DC_LANES), dtype=torch.int32,
-                     device=padded.device)
-    PIXEL_DC_PLANE.launch(padded.device, padded.data_ptr(), m.data_ptr(),
-                          bias.data_ptr(), out.data_ptr(), dc.data_ptr(),
-                          n_mcu, nrx, padded.shape[1] * 3, mh, mw)
-    return out, dc
+    return _launch_factored(PIXEL_DC_PLANE if with_dc else PIXEL,
+                            ops.pad_to_multiple(img, (mh, mw)), m, bias,
+                            subsampling, mh, mw,
+                            chroma_groups(subsampling)[0], with_dc=with_dc)
 
 
 def encode_blocks_matmul_pairs(img: torch.Tensor, m: torch.Tensor,
@@ -484,25 +482,20 @@ def encode_blocks_i8_pairs(img: torch.Tensor, m: torch.Tensor,
     """The counterpart of jpegtpu's ``encode_blocks_pallas_pairs``: u8
     [H, W, 3] -> int32 [nMCU, B*64]. For 4:2:0 the glue views the padded
     image XOR 0x80 as int8 [rows, 16, nrx, 48] (``fused_dctq.py:216-217``)
-    and ``csrc/pixel.cu`` (``jt_pixel_i8``) restores + 128 on a CUDA
-    tensor, the plain twin ``pixel_i8_plain`` on a CPU tensor; the other
+    and ``csrc/pixel_mma.cu`` (``jt_pixel_i8``, K1's factored product)
+    XORs each byte back to u8 as it stages it on a CUDA tensor, the plain
+    twin ``pixel_i8_plain`` restores + 128 on a CPU tensor; the other
     modes take the "xla" route (``encode_blocks_matmul_pairs``), as
     jpegtpu's ``:210-213`` takes its XLA path."""
-    n_out = operand_geometry(img, m, bias, subsampling)[3]
+    operand_geometry(img, m, bias, subsampling)
     if subsampling != "420":
         return encode_blocks_matmul_pairs(img, m, bias, subsampling)
     x8 = i8_view(img)
     if img.device.type == "cpu":
         return pixel_i8_plain(x8, m, bias)
-    m = m.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
-    _build.check_cuda(x8, m, bias)
-    rows, _, nrx, row_bytes = x8.shape
-    out = torch.empty((rows * nrx, n_out), dtype=torch.int32,
-                      device=x8.device)
-    PIXEL_I8.launch(x8.device, x8.data_ptr(), m.data_ptr(), bias.data_ptr(),
-                    out.data_ptr(), rows * nrx, nrx, nrx * row_bytes)
-    return out
+    rows, _, nrx, _ = x8.shape
+    return _launch_factored(PIXEL_I8, x8.reshape(rows * 16, nrx * 16, 3), m,
+                            bias, subsampling)
 
 
 def encode_blocks_dma_pairs(img: torch.Tensor, m: torch.Tensor,
@@ -516,13 +509,13 @@ def encode_blocks_dma_pairs(img: torch.Tensor, m: torch.Tensor,
     twin ``encode_blocks_pairs_plain`` (the same function of the same
     input) runs. The other modes take the "xla" route, as jpegtpu's
     ``:306-309`` takes its XLA path."""
-    mh, mw, _, n_out = operand_geometry(img, m, bias, subsampling)
+    mh, mw, _, _ = operand_geometry(img, m, bias, subsampling)
     if subsampling != "420":
         return encode_blocks_matmul_pairs(img, m, bias, subsampling)
     if img.device.type == "cpu":
         return encode_blocks_pairs_plain(img, m, bias, subsampling)
-    return _launch_factored(PIXEL_DMA, img, m, bias, subsampling, mh, mw,
-                            n_out)
+    return _launch_factored(PIXEL_DMA, ops.pad_to_multiple(img, (mh, mw)), m,
+                            bias, subsampling)
 
 
 def encode_blocks(img: torch.Tensor, tables, subsampling: str) -> torch.Tensor:

@@ -1,0 +1,82 @@
+"""The C interface of the port's kernel library, read from the sources on
+the CPU: every ``_build.Kernel`` that the port declares names an ``extern
+"C"`` launcher of a source in ``_build.SOURCES``, with the same number of
+arguments and the same kind of each (pointer, 64-bit or 32-bit integer),
+the CUDA stream last. ctypes passes what a declaration says, so a
+declaration that drifts from its launcher would show only on the card,
+as undefined behaviour. Imports no JAX."""
+
+import re
+
+import pytest
+
+from jpegtpu_torch.kernels import (_build, compact, entropy_oracles,
+                                   entropy_pack, fused_dctq, fused_pipeline)
+
+# Every Kernel the port declares, by launcher symbol.
+KERNELS = {k.symbol: k for mod in (fused_dctq, entropy_pack,
+                                   entropy_oracles, compact, fused_pipeline)
+           for k in vars(mod).values() if isinstance(k, _build.Kernel)}
+# C parameter types -> the ctypes type a declaration must give them.
+SCALARS = {"long long": _build.I64, "int64_t": _build.I64,
+           "int": _build.I32, "int32_t": _build.I32, "unsigned": _build.I32,
+           "uint32_t": _build.I32}
+
+
+def _launchers():
+    """symbol -> (source, [parameter declarations]) of every extern "C"
+    function of the library's sources."""
+    out = {}
+    for name in _build.SOURCES:
+        text = re.sub(r"//[^\n]*", "", (_build.CSRC / name).read_text())
+        for m in re.finditer(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)',
+                             text):
+            params = [" ".join(p.split()) for p in m.group(2).split(",")]
+            out[m.group(1)] = (name, [p for p in params if p])
+    return out
+
+
+def _ctype(decl: str):
+    """The ctypes type of one C parameter declaration ("const float* lum",
+    "long long n_mcu", "cudaStream_t stream")."""
+    if "*" in decl or decl.split()[0] == "cudaStream_t":
+        return _build.PTR
+    ctype = " ".join(w for w in decl.split()[:-1] if w != "const")
+    if ctype not in SCALARS:
+        raise AssertionError(f"unknown C parameter type in {decl!r}")
+    return SCALARS[ctype]
+
+
+def test_the_port_declares_all_fourteen_kernels():
+    assert len(KERNELS) == 14
+
+
+def test_sources_are_the_csrc_files():
+    """The library is built from every .cu in csrc/ and hashed with every
+    .cuh: no source is left out of the build, none is listed that is
+    gone."""
+    assert sorted(_build.SOURCES) == sorted(
+        p.name for p in _build.CSRC.glob("*.cu"))
+    assert sorted(_build.HEADERS) == sorted(
+        p.name for p in _build.CSRC.glob("*.cuh"))
+
+
+@pytest.mark.parametrize("symbol", sorted(KERNELS))
+def test_launcher_abi_matches_its_declaration(symbol):
+    launchers = _launchers()
+    assert symbol in launchers, f"no extern \"C\" {symbol} in the sources"
+    source, params = launchers[symbol]
+    assert params[-1].split()[0] == "cudaStream_t", (source, params[-1])
+    got = [_ctype(p) for p in params]
+    want = KERNELS[symbol].argtypes
+    assert len(got) == len(want), (source, params)
+    for i, (g, w, p) in enumerate(zip(got, want, params)):
+        assert g is w, f"{symbol} argument {i} ({p}): C {g}, declared {w}"
+
+
+def test_every_launcher_is_declared():
+    """Every extern "C" function that takes a stream is a Kernel of the
+    port (the others report sizes)."""
+    launchers = {s for s, (_, params) in _launchers().items()
+                 if params and params[-1].split()[0] == "cudaStream_t"}
+    assert launchers == set(KERNELS)

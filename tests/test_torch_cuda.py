@@ -326,15 +326,19 @@ def test_pixel_kernel_on_a_batch_view(dev, mode):
 
 def test_pixel_kernel_refuses_an_operator_that_does_not_factor(dev):
     """An operator that is not the expansion of its factors raises on the
-    card: nothing falls back to the dense product or to the CPU."""
+    card, in K1's, K12's, K13's and K14's wrappers: nothing falls back to
+    the dense product or to the CPU, and no kernel is launched."""
     img = torch.from_numpy(IMAGES["odd_37x53"]()).to(dev)
     t = EncoderTables.for_quality(90, "420", dev)
     m = t.m.clone()
     m[5, 300] += 1.0                  # a chroma weight off its 2x2 group
     for fn in (fused_dctq.encode_blocks_pairs,
+               lambda *a: fused_dctq.encode_blocks_pairs(*a, with_dc=True),
+               fused_dctq.encode_blocks_i8_pairs,
                fused_dctq.encode_blocks_dma_pairs):
         with pytest.raises(ValueError, match="420"):
-            fn(img, m, t.bias, "420")
+            _path_launches(lambda: fn(img, m, t.bias, "420"))
+        assert not any(k.launches for k in PATH_KERNELS.values())
 
 
 # Images whose MCU count leaves the last tile of K1 short in every geometry
@@ -351,6 +355,109 @@ def test_pixel_kernel_short_last_tile(dev, mode, shape):
     got = fused_dctq.encode_blocks_pairs(img, t.m, t.bias, mode)
     want = fused_dctq.encode_blocks_pairs_plain(img, t.m, t.bias, mode)
     assert torch.equal(got, want)
+
+
+# K12 in every geometry and K13 at 4:2:0 (its only one), by the name of
+# their launch count in PATH_KERNELS.
+FACTORED_ROUTES = [("pixel_dc", m) for m in ("420", "422", "444", "444s")
+                   ] + [("pixel_i8", "420")]
+
+
+def _check_route(kernel, img, t, mode, want):
+    """K12 or K13 on img, once: the coefficients want and, for K12, their
+    DC plane."""
+    if kernel == "pixel_dc":
+        (got, dc), launches = _path_launches(
+            lambda: fused_dctq.encode_blocks_pairs(img, t.m, t.bias, mode,
+                                                   with_dc=True))
+        assert dc.dtype == torch.int32
+        assert torch.equal(dc, fused_dctq.dc_plane(want))
+    else:
+        got, launches = _path_launches(
+            lambda: fused_dctq.encode_blocks_i8_pairs(img, t.m, t.bias,
+                                                      mode))
+    assert launches == dict(dict.fromkeys(PATH_KERNELS, 0), **{kernel: 1})
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", SHORT_TILE_SHAPES)
+@pytest.mark.parametrize("kernel,mode", FACTORED_ROUTES)
+def test_dc_plane_and_i8_kernels_short_last_tile(dev, kernel, mode, shape):
+    img = torch.from_numpy(_random(*shape, sum(shape))).to(dev)
+    t = EncoderTables.for_quality(75, mode, dev)
+    _check_route(kernel, img, t, mode,
+                 fused_dctq.encode_blocks_pairs_plain(img, t.m, t.bias, mode))
+
+
+@pytest.mark.parametrize("kernel,mode", FACTORED_ROUTES)
+def test_dc_plane_and_i8_kernels_on_a_batch_view(dev, kernel, mode):
+    """K12 and K13 on three 37x53 images padded to whole MCUs and viewed as
+    one tall image, against the per-image twins."""
+    imgs = torch.from_numpy(np.stack([_random(37, 53, s)
+                                      for s in (11, 22, 23)])).to(dev)
+    t = EncoderTables.for_quality(90, mode, dev)
+    padded = ops.pad_to_multiple(imgs, ops.mcu_shape(mode))
+    want = torch.cat([fused_dctq.encode_blocks_pairs_plain(
+        im, t.m, t.bias, mode) for im in imgs])
+    _check_route(kernel, padded.reshape(-1, *padded.shape[2:]), t, mode,
+                 want)
+
+
+SENTINEL = 0x7FFFFFFF
+
+
+@pytest.mark.parametrize("mode", ["420", "422", "444", "444s"])
+def test_dc_plane_kernel_writes_every_lane_and_no_more(dev, mode):
+    """jt_pixel_dc launched directly onto buffers filled with a sentinel and
+    one MCU row longer than the image: every coefficient and plane lane of
+    the image's MCUs is written (the zero lanes too), nothing past them."""
+    img = torch.from_numpy(_random(72, 200, 3)).to(dev)
+    t = EncoderTables.for_quality(90, mode, dev)
+    mh, mw, _, n_out = fused_dctq.fused_geometry(mode)
+    x = ops.pad_to_multiple(img, (mh, mw)).contiguous()
+    nrx = x.shape[1] // mw
+    n_mcu = x.shape[0] // mh * nrx
+    out = torch.full((n_mcu + nrx, n_out), SENTINEL, dtype=torch.int32,
+                     device=dev)
+    dc = torch.full((n_mcu + nrx, 8), SENTINEL, dtype=torch.int32,
+                    device=dev)
+    lum, chroma = fused_dctq.cuda_factors(t.m, t.bias, mode)
+    fused_dctq.PIXEL_DC_PLANE.launch(
+        dev, x.data_ptr(), lum.data_ptr(), chroma.data_ptr(),
+        t.bias.data_ptr(), out.data_ptr(), dc.data_ptr(), n_mcu, nrx,
+        x.shape[1] * 3, mh, mw, fused_dctq.chroma_groups(mode)[0])
+    want = fused_dctq.encode_blocks_pairs_plain(img, t.m, t.bias, mode)
+    assert torch.equal(out[:n_mcu], want)
+    assert torch.equal(dc[:n_mcu], fused_dctq.dc_plane(want))
+    assert bool((out[n_mcu:] == SENTINEL).all())
+    assert bool((dc[n_mcu:] == SENTINEL).all())
+
+
+def test_factored_launchers_refuse_what_they_do_not_take(dev):
+    """The launchers of K12 and K13 return K1's error codes, which the
+    wrapper raises, and launch nothing: a misaligned image
+    (cudaErrorMisalignedAddress, 716), a geometry they do not take or an
+    MCU count past 2^31 (cudaErrorInvalidValue, 1)."""
+    x = torch.zeros((32, 48, 3), dtype=torch.uint8, device=dev)
+    t = EncoderTables.for_quality(90, "420", dev)
+    lum, chroma = fused_dctq.cuda_factors(t.m, t.bias, "420")
+    out = torch.empty((6, 384), dtype=torch.int32, device=dev)
+    dc = torch.empty((6, 8), dtype=torch.int32, device=dev)
+    operands = (lum.data_ptr(), chroma.data_ptr(), t.bias.data_ptr(),
+            out.data_ptr())
+    k12, k13 = fused_dctq.PIXEL_DC_PLANE, fused_dctq.PIXEL_I8
+    img, plane = x.data_ptr(), dc.data_ptr()
+    cases = [
+        (k12, (img + 1, *operands, plane, 6, 3, 144, 16, 16, 64), 716),
+        (k12, (img, *operands, plane, 6, 3, 144, 16, 8, 64), 1),
+        (k13, (img + 8, *operands, 6, 3, 144), 716),
+        (k13, (img, *operands, 6, 3, 152), 716),
+        (k13, (img, *operands, 1 << 31, 3, 144), 1)]
+    for kernel, args, code in cases:
+        kernel.launches = 0
+        with pytest.raises(RuntimeError, match=f"CUDA error {code} "):
+            kernel.launch(dev, *args)
+        assert kernel.launches == 0
 
 
 @pytest.mark.parametrize("kind", ["dense", "sparse"])
@@ -380,8 +487,12 @@ def test_wrappers_raise_on_cpu_operands(dev):
     """A CUDA input with CPU tables raises: nothing falls back to a twin."""
     img = torch.zeros((16, 16, 3), dtype=torch.uint8, device=dev)
     t = EncoderTables.for_quality(90, "420", "cpu")
-    with pytest.raises(ValueError, match="CUDA"):
-        fused_dctq.encode_blocks_pairs(img, t.m, t.bias)
+    for fn in (fused_dctq.encode_blocks_pairs,
+               lambda *a: fused_dctq.encode_blocks_pairs(*a, with_dc=True),
+               fused_dctq.encode_blocks_i8_pairs,
+               fused_dctq.encode_blocks_dma_pairs):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(img, t.m, t.bias)
     c = torch.zeros((1, 384), dtype=torch.int32, device=dev)
     cls = torch.zeros(6, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="CUDA"):
@@ -458,13 +569,14 @@ def test_fused_kernel_on_a_batch_view(dev, mode):
         assert torch.equal(ml, ml_p) and torch.equal(mw, mw_p)
 
 
+@pytest.mark.parametrize("q", [1, 50, 90, 100])
 @pytest.mark.parametrize("mode", ["420", "422", "444", "444s"])
 @pytest.mark.parametrize("name", sorted(IMAGES))
-def test_dc_plane_kernel_matches_twin(dev, name, mode):
+def test_dc_plane_kernel_matches_twin(dev, name, mode, q):
     """K12 at every fused geometry: the coefficients of K1's twin and
     their DC plane, lanes past the MCU's blocks zero."""
     img = torch.from_numpy(IMAGES[name]()).to(dev)
-    t = EncoderTables.for_quality(90, mode, dev)
+    t = EncoderTables.for_quality(q, mode, dev)
     (got, dc), launches = _path_launches(
         lambda: fused_dctq.encode_blocks_pairs(img, t.m, t.bias, mode,
                                                with_dc=True))

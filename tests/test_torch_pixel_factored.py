@@ -1,8 +1,9 @@
-"""The factored pixel product of K1 and K14 on the CPU: the factors
-reproduce ``mcu_operator`` bit for bit, every column's sum is exact in
-float64 in any order, an operator that does not factor raises, the
-factored plain form gives the dense twin's coefficients, and
-``Kernel.launch`` runs on its operands' device. Imports no JAX: the port's
+"""The factored pixel product of K1, K12, K13 and K14 on the CPU: the
+factors reproduce ``mcu_operator`` bit for bit, every column's sum is
+exact in float64 in any order, an operator that does not factor raises,
+the factored plain form gives the dense twin's coefficients, its DC plane
+(K12's) and, on the image the int8 view restores, the i8 twin's (K13's),
+and ``Kernel.launch`` runs on its operands' device. Imports no JAX: the port's
 ``mcu_operator`` is pinned to jpegtpu's by ``tests/test_torch_tables.py``
 and ``tests/test_torch_modes.py``."""
 
@@ -18,6 +19,8 @@ from jpegtpu_torch.kernels import _build, fused_dctq
 
 MODES = ("420", "422", "444", "444s")
 QUALITIES = (1, 10, 50, 75, 90, 95, 100)
+# The qualities at which the GPU checks hold the pixel kernels to the twin.
+PIXEL_QUALITIES = (1, 50, 90, 100)
 
 
 def _random(h, w, seed):
@@ -115,6 +118,38 @@ def test_factored_plain_equals_dense_plain(image, mode, q):
     got = fused_dctq.encode_blocks_factored_plain(x, t.lum, t.chroma,
                                                   t.bias, mode)
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("q", PIXEL_QUALITIES)
+@pytest.mark.parametrize("mode", MODES)
+def test_factored_dc_plane_equals_the_dense_twins(image, mode, q):
+    """K12's arithmetic: the DC plane of the factored product is the dense
+    twin's, lane k the coefficient of column 64k, the lanes past the MCU's
+    blocks zero."""
+    t = EncoderTables.for_quality(q, mode)
+    x = torch.from_numpy(image)
+    dense = fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias, mode)
+    got = fused_dctq.dc_plane(fused_dctq.encode_blocks_factored_plain(
+        x, t.lum, t.chroma, t.bias, mode))
+    assert torch.equal(got, fused_dctq.dc_plane(dense))
+    n_blocks = dense.shape[1] // 64
+    assert torch.equal(got[:, :n_blocks], dense[:, ::64])
+    assert not got[:, n_blocks:].any()
+
+
+@pytest.mark.parametrize("q", PIXEL_QUALITIES)
+def test_factored_plain_on_the_restored_i8_view(image, q):
+    """K13's arithmetic: the factored product of the u8 image that the
+    centred int8 view gives back byte for byte (view ^ 0x80) equals the i8
+    twin of the view."""
+    t = EncoderTables.for_quality(q, "420")
+    x8 = fused_dctq.i8_view(torch.from_numpy(image))
+    rows, _, nrx, _ = x8.shape
+    restored = torch.bitwise_xor(x8.view(torch.uint8), 0x80).reshape(
+        rows * 16, nrx * 16, 3)
+    got = fused_dctq.encode_blocks_factored_plain(restored, t.lum, t.chroma,
+                                                  t.bias, "420")
+    assert torch.equal(got, fused_dctq.pixel_i8_plain(x8, t.m, t.bias))
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -137,6 +137,32 @@ def test_dc_plane_twin_matches_pallas_kernel_interpret(bands):
     np.testing.assert_array_equal(dc.numpy(), want_dc)
 
 
+@pytest.mark.parametrize("mode,n_mcu", [("422", 8), ("444", 16)])
+def test_dc_plane_twin_matches_pallas_kernel_interpret_422_444(mode, n_mcu):
+    """K12's twin against _pixel_kernel_nat_dc in the other geometries that
+    have a DC plane in jpegtpu, on one MCU row of one whole lane group (8
+    MCUs of 48 bytes a row at 4:2:2, 16 of 24 at 4:4:4): the coefficients
+    and the plane, lanes past the MCU's blocks zero; through the batch
+    path too."""
+    mh, mw = {"422": (8, 16), "444": (8, 8)}[mode]
+    img = _random(mh, mw * n_mcu, 31)
+    want_c, want_dc = _nat_pairs(jnp.asarray(img), QUALITY, mode,
+                                 with_dc=True)
+    want_c, want_dc = np.asarray(want_c), np.asarray(want_dc)
+    n_blocks = want_c.shape[1] // 64
+    assert want_dc.shape == (n_mcu, 8) and not want_dc[:, n_blocks:].any()
+    t = EncoderTables.for_quality(QUALITY, mode)
+    x = torch.from_numpy(img)
+    c, dc = t_fused_dctq.encode_blocks_pairs(x, t.m, t.bias, mode,
+                                             with_dc=True)
+    np.testing.assert_array_equal(c.numpy(), want_c)
+    np.testing.assert_array_equal(dc.numpy(), want_dc)
+    c, dc = t_fused_dctq.encode_blocks_batch(x[None], t, mode, "nat",
+                                             with_dc=True)
+    np.testing.assert_array_equal(c.numpy(), want_c)
+    np.testing.assert_array_equal(dc.numpy(), want_dc)
+
+
 def test_i8_twin_matches_pallas_kernel_interpret(bands):
     """K13's twin (the centred int8 view, + 128 restored) against
     _pixel_kernel, which reads the same view."""
