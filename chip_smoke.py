@@ -85,6 +85,8 @@ PROFILED = (("420", "rows", {}), ("420", 0, {}), ("420", 7, {}),
             ("420", "rows", {"pixel_path": "dma"}),
             ("420", "rows", {"pixel_dc": True}))
 TIMING_REPS = 20
+# Launches of each stuffing wrapper on each stuffing input in phase 3.
+STUFF_REPEATS = 20
 # Qualities at which phase 3 holds K1 and K12 (every geometry), K13 and K14
 # (4:2:0) against the dense twin.
 PIXEL_QUALITIES = (1, 50, 90, 100)
@@ -262,8 +264,10 @@ def profile_device_encode(fn, wall_ms: float, card: str, reps: int = 5,
     if not rows:
         print("[profile] device time: not measured (no CUDA events traced)")
         return
+    n_ops = sum(e.count for e in rows) / reps
     print(f"[profile] device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms per "
-          f"encode (idle share {1 - busy_ms / wall_ms:.3f})  [{card}]")
+          f"encode (idle share {1 - busy_ms / wall_ms:.3f}), {n_ops:g} "
+          f"device launches per encode (kernels, memsets, copies)  [{card}]")
     for e in rows[:top]:
         print(f"[profile] {dev_us(e) / reps / 1e3:9.4f} ms  "
               f"x{e.count // reps:<3d} {e.key[:90]}")
@@ -579,6 +583,59 @@ def main() -> int:
            f"segments, total {total_b} bytes, image offsets", n_bad + n_off,
            max(e, e_off))
 
+    # K4 and K5 (one look-back kernel body, two launchers) launched
+    # STUFF_REPEATS times each on every stuffing input of the paths, against
+    # the twins' outputs: 4:2:0 rows, restart 0, restart 7, 4:4:4 restart 1
+    # (129,600 one-tile segments), the batch with per-image markers (K5
+    # given K4's marker table), and segments of all-0xFF words (every byte
+    # stuffed, the capacity's worst case) at the main path's shape with
+    # ragged byte counts. A race in the look-back would show as a mismatch
+    # in some repeat.
+    c444 = fused_dctq.encode_blocks_pairs(x, tabs["444"].m, tabs["444"].bias,
+                                          "444")
+    sw7, sb7, _ = seg_set(coeffs, "420", 7)
+    sw444, sb444, _ = seg_set(c444, "444", 1)
+    del c444
+    rng = np.random.default_rng(0)
+    ffw = torch.full_like(sw, -1)
+    ffb = torch.from_numpy(rng.integers(0, 32 * sw.shape[1] + 1, n_seg)).to(
+        dev, torch.int32)
+    ffb[::9] = torch.from_numpy(8 * 4096 * rng.integers(    # whole tiles
+        0, sw.shape[1] // 1024 + 1, ffb[::9].numel())).to(dev, torch.int32)
+    stuff_inputs = {
+        "420 rows": (sw, sb, restart, None),
+        "420 restart 0": (sw0, sb0, 0, None),
+        "420 restart 7": (sw7, sb7, 7, None),
+        "444 restart 1": (sw444, sb444, 1, None),
+        f"batch {BATCH} x 1080p, per-image markers": (swb, sbb, bmx, bmy),
+        "all-0xFF words, ragged counts": (ffw, ffb, restart, None)}
+    for label, (sw_, sb_, r_, spi_) in stuff_inputs.items():
+        want = compact.compact_segments_stuffed_grouped_plain(sw_, sb_, r_,
+                                                             spi_)
+        tot_ = int(want[1])
+        mnum_ = compact.marker_table(sw_.shape[0], r_, spi_, dev)
+        runs = {"stuff": lambda: compact.compact_segments_stuffed_grouped(
+                    sw_, sb_, r_, spi_),
+                "stuff_chunks": lambda: compact.compact_segments_stuffed(
+                    sw_, sb_, r_, mnum_)}
+        for n, fn in runs.items():
+            n_bad = e = 0
+            for _ in range(STUFF_REPEATS):
+                got = fn()
+                n_by, e_by = diff(got[0][:tot_], want[0][:tot_])
+                n_off, e_off = (diff(got[2], want[2]) if len(got) == 3
+                                else (0, 0))
+                n_bad += n_by + n_off + int(int(got[1]) != tot_)
+                e = max(e, e_by, e_off, abs(int(got[1]) - tot_))
+                del got
+            errs[n] = max(errs[n], e)
+            report(f"{'K4' if n == 'stuff' else 'K5'} {label}: "
+                   f"{sw_.shape[0]} segments of {sw_.shape[1]} words, "
+                   f"{tot_} bytes, {STUFF_REPEATS} launches: bytes, total"
+                   f"{', image offsets' if n == 'stuff' else ''}", n_bad, e)
+        del want
+    del stuff_inputs, ffw, ffb
+
     # K11-K14, the kernels of the pixel-path selectors. K11 at 420 rows,
     # restart 0 (every block takes its first DC predictor from its halo
     # MCU) and 7 (resets inside thread blocks), 422 rows and 444 rows (odd
@@ -621,7 +678,7 @@ def main() -> int:
                 "jpegtpu/kernels/entropy_pack.py:879"),
                ("stuff", compact.STUFF, "stuff.cu",
                 "jpegtpu/kernels/compact.py:1004"),
-               ("stuff_chunks", compact.STUFF_CHUNKS, "stuff_chunks.cu",
+               ("stuff_chunks", compact.STUFF_CHUNKS, "stuff.cu",
                 "jpegtpu/kernels/compact.py:317"),
                ("compact", compact.COMPACT, "compact.cu",
                 "jpegtpu/kernels/compact.py:44"),
@@ -1023,7 +1080,7 @@ def main() -> int:
     for n, keys in pixel_keys.items():
         print(f"[time] {n} kernel alone (profiler), 420 {w}x{h}: "
               f"{kernel_device_ms(pairs[n][0], *keys)} ms  [{card}]")
-    line("stuff.cu (one block per segment) on the restart-0 segment",
+    line("K4 jt_stuff_segments on the restart-0 segment (K5's input)",
          time_ms(lambda: compact.compact_segments_stuffed_grouped(
              sw0, sb0, 0)))
     # K7-K10 alone (profiler) on the ladder's 4:2:0 rows inputs, then K9
@@ -1058,31 +1115,55 @@ def main() -> int:
               f"(profiler) {kernel_device_ms(k6, '::compact_kernel(')} ms, "
               f"bound {by_ / HBM_BYTES_PER_S * 1e3:.6f} ms ({by_} bytes)  "
               f"[{card}]")
-    k4b = lambda: compact.compact_segments_stuffed_grouped(  # noqa: E731
-        swb, sbb, bmx, bmy)
-    print(f"[time] K4 stuff.cu with per-image markers on the batch's "
-          f"{swb.shape[0]} segments: wrapper {time_ms(k4b):.4f} ms, kernel "
-          f"alone (profiler) {kernel_device_ms(k4b, '::stuff_kernel(')} ms"
-          f"  [{card}]")
+    # K4 and K5 on the inputs the paths give them: the main path's 135
+    # segments (K4), the restart-0 segment (K5) and the batch's 544
+    # segments with per-image markers (K4). The wrapper (CUDA events: the
+    # scratch memset, the kernel and the host's launch), the kernel alone
+    # and the memset alone (profiler), and the bound: what the function
+    # needs, the valid bytes in, the stuffed bytes out, seg_bits and mnum
+    # (4 bytes a segment each) and bounds (8 an image, plus the total), over
+    # the HBM rate. The scratch is not the function's and is left out.
+    def stuff_bytes(sw_, sb_, tot_, n_img):
+        valid = int(((sb_.to(torch.int64) + 7) // 8).sum())
+        return valid + tot_ + 8 * sw_.shape[0] + 8 * (n_img + 1)
+
+    stuff_cases = {
+        "main path 420 rows, K4": (
+            "stuff", lambda: compact.compact_segments_stuffed_grouped(
+                sw, sb, restart), sw, sb, 1),
+        "420 restart 0, K5": (
+            "stuff_chunks", lambda: compact.compact_segments_stuffed(
+                sw0, sb0, 0), sw0, sb0, 1),
+        f"batch {BATCH} x 1080p with per-image markers, K4": (
+            "stuff", lambda: compact.compact_segments_stuffed_grouped(
+                swb, sbb, bmx, bmy), swb, sbb, BATCH)}
+    stuff_bound = {}
+    for label, (n, fn, sw_, sb_, n_img) in stuff_cases.items():
+        by_ = stuff_bytes(sw_, sb_, int(fn()[1]), n_img)
+        stuff_bound.setdefault(n, by_)
+        print(f"[time] {label} ({sw_.shape[0]} segments, "
+              f"{compact.stuff_tiles(*sw_.shape)} chunks): wrapper "
+              f"{time_ms(fn):.4f} ms, kernel alone (profiler) "
+              f"{kernel_device_ms(fn, 'stuff_lookback_kernel')} ms, scratch "
+              f"memset {kernel_device_ms(fn, 'Memset')} ms, bound "
+              f"{by_ / HBM_BYTES_PER_S * 1e3:.6f} ms ({by_} bytes)  [{card}]")
     del k6_sets, swb, sbb
 
     # K4 and K5 on the same multi-segment sets, in turns (K4, K5, K5, K4),
-    # wrapper with glue (CUDA events) and kernel alone (profiler). K5 takes
-    # the words padded to whole 4 KB chunks, padded outside the timing (the
-    # layout a single segment has); its scan must equal K4's.
+    # wrapper (CUDA events) and kernel alone (profiler); one kernel body,
+    # so the two must give the same scan.
     c444 = fused_dctq.encode_blocks_pairs(x, tabs["444"].m, tabs["444"].bias,
                                           "444")
     seg_sets = {"420 rows": (sw, sb, restart),
-                "420 restart 7": seg_set(coeffs, "420", 7),
+                "420 restart 7": (sw7, sb7, 7),
                 "420 restart 1": (sw1, sb1, 1),
                 "444 rows": seg_set(c444, "444",
-                                    ops.mcu_grid(h, w, "444")[1])}
+                                    ops.mcu_grid(h, w, "444")[1]),
+                "444 restart 1": (sw444, sb444, 1)}
     del c444
     for label, (sw_, sb_, r_) in seg_sets.items():
-        sw5 = torch.nn.functional.pad(sw_,
-                                      (0, -sw_.shape[1] % compact.CHUNK_WORDS))
         b4, t4, _ = compact.compact_segments_stuffed_grouped(sw_, sb_, r_)
-        b5, t5 = compact.compact_segments_stuffed(sw5, sb_, r_)
+        b5, t5 = compact.compact_segments_stuffed(sw_, sb_, r_)
         t4, t5 = int(t4), int(t5)
         n_bad, e = diff(b5[:t4], b4[:t4])
         report(f"K5 against K4 on the {label} segments "
@@ -1092,15 +1173,40 @@ def main() -> int:
         k4 = lambda: compact.compact_segments_stuffed_grouped(  # noqa: E731
             sw_, sb_, r_)
         k5 = lambda: compact.compact_segments_stuffed(  # noqa: E731
-            sw5, sb_, r_)
+            sw_, sb_, r_)
         a1, c1, c2, a2 = time_ms(k4), time_ms(k5), time_ms(k5), time_ms(k4)
-        line(f"{label} segments: K4 stuff.cu wrapper", min(a1, a2))
-        line(f"{label} segments: K5 stuff_chunks.cu wrapper", min(c1, c2))
+        line(f"{label} segments: K4 jt_stuff_segments wrapper", min(a1, a2))
+        line(f"{label} segments: K5 jt_stuff_chunks wrapper", min(c1, c2))
         print(f"[time] {label} segments: kernel alone (profiler): K4 "
-              f"{kernel_device_ms(k4, '::stuff_kernel(')} ms, K5 "
-              f"{kernel_device_ms(k5, '::stuff_chunks_kernel(')} ms  "
+              f"{kernel_device_ms(k4, 'stuff_lookback_kernel')} ms, K5 "
+              f"{kernel_device_ms(k5, 'stuff_lookback_kernel')} ms  "
               f"[{card}]")
-    del seg_sets, sw1, sb1
+    # The chain's width at restart 7: 4,629 segments of 2,186 words (3
+    # tiles), each segment's data in its first tile. The kernel alone on
+    # the segments as they are and cut to their first tile (the same data
+    # tiles and scan, a chain of one tile a segment, no width to find), in
+    # turns: what the wider chain, or finding its width, costs.
+    if int((sb7.to(torch.int64) + 7).max()) // 8 <= compact.CHUNK_BYTES:
+        sw7n = sw7[:, :compact.CHUNK_WORDS].contiguous()
+        k_w = lambda: compact.compact_segments_stuffed_grouped(  # noqa: E731
+            sw7, sb7, 7)
+        k_n = lambda: compact.compact_segments_stuffed_grouped(  # noqa: E731
+            sw7n, sb7, 7)
+        (bw, tw, _), (bn, tn, _) = k_w(), k_n()
+        tw, tn = int(tw), int(tn)
+        n_bad, e = diff(bn[:tw], bw[:tw])
+        report(f"K4 on the 420 restart 7 segments cut to one tile "
+               f"{tuple(sw7n.shape)} against the whole rows, {tw} bytes",
+               n_bad + int(tw != tn), max(e, abs(tw - tn)))
+        del bw, bn
+        ms = [kernel_device_ms(k, "stuff_lookback_kernel", reps=20)
+              for k in (k_w, k_n, k_n, k_w)]
+        print(f"[time] 420 restart 7, kernel alone (profiler, 20 launches, "
+              f"in turns): rows of {sw7.shape[1]} words {ms[0]} / {ms[3]} "
+              f"ms, rows cut to {compact.CHUNK_WORDS} words {ms[1]} / "
+              f"{ms[2]} ms  [{card}]")
+        del sw7n
+    del seg_sets, sw1, sb1, sw7, sb7, sw444, sb444
 
     # The library yardstick of K1: one float64 torch.matmul of the MCU
     # tiles by the operator (timed here, never called by the port).
@@ -1315,14 +1421,13 @@ def main() -> int:
     # are not counted.
     valid_mcu_words = int(((ml.to(torch.int64) + 31) // 32).sum())
     nbytes_rows = int(((sb.to(torch.int64) + 7) // 8).sum())
-    nbytes0 = (int(sb0[0]) + 7) // 8
     bytes_moved = {
         "block_pack": ((coeffs.numel() + cls.numel() + dcd.numel()) * 4 +
                        sum(t.numel() * 4 for t in luts) +
                        (valid_mcu_words + ml.numel()) * 4),
         "seg_merge": 2 * valid_mcu_words * 4 + n_mcu * 8 + n_seg * 4,
-        "stuff": nbytes_rows + n_seg * 12 + total,
-        "stuff_chunks": nbytes0 + n_chunks * 12 + 16 + total0,
+        "stuff": stuff_bound["stuff"],
+        "stuff_chunks": stuff_bound["stuff_chunks"],
         "compact": 2 * nbytes_rows + n_seg * 12,
     }
     # K7-K10 on the ladder's 4:2:0 rows inputs: the valid block, MCU and

@@ -96,7 +96,7 @@ def explode_bytes(words: torch.Tensor) -> torch.Tensor:
     w = words.to(torch.int64)
     by = torch.stack([(w >> 24) & 0xFF, (w >> 16) & 0xFF,
                       (w >> 8) & 0xFF, w & 0xFF], dim=-1)
-    return by.reshape(words.shape[0], -1)
+    return by.reshape(words.shape[0], 4 * words.shape[1])
 
 
 def stuff_and_splice(by: torch.Tensor, nbytes: torch.Tensor,

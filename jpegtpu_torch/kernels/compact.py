@@ -2,27 +2,30 @@
 entropy-coded scan, or the segments' bytes back to back for the host to
 stuff (counterpart of ``jpegtpu.kernels.compact``).
 
-Two stuffing kernels, as in jpegtpu, chosen by the encoder from the
-segment count:
+Two stuffing wrappers, as in jpegtpu, chosen by the encoder from the
+segment count, launch one kernel body, ``csrc/stuff.cu``: a single pass
+over the segment words in 4 KB tiles in stream order, each tile counting
+its own 0xFF bytes and learning its output offset from the tiles before it
+by a decoupled look-back. Neither runs any glue on the card: the words,
+bit counts and marker table go in, the scan and its bounds come out.
 
 - ``compact_segments_stuffed`` (one segment, or any count in one chain)
-  launches ``csrc/stuff_chunks.cu``, the port of ``_compact_stuff_kernel``
-  / ``_compact_stuff_kernel_kb``. Its glue ``stuff_precompute_chunks`` is
-  jpegtpu's ``_stuff_precompute``: the stuffed output offset of every
-  4 KB chunk of every segment, so no chunk waits for another.
+  launches ``jt_stuff_chunks``, the port of ``_compact_stuff_kernel`` /
+  ``_compact_stuff_kernel_kb``.
 - ``compact_segments_stuffed_grouped`` (several segments) launches
-  ``csrc/stuff.cu``, the port of ``_compact_stuff_kernel_gkb``, one thread
-  block per segment; its glue ``stuff_precompute`` gives each segment's
-  stuffed start and each image's first byte (a batch is one scan of whole
-  image scans, its RST markers numbered within each image).
+  ``jt_stuff_segments``, the port of ``_compact_stuff_kernel_gkb``, and
+  also gives each image's first byte (a batch is one scan of whole image
+  scans, its RST markers numbered within each image).
 
 Both return one contiguous u8 buffer whose first ``total`` bytes are the
-scan. With ``device_stuff=False`` the encoder takes ``compact_segments``
-instead, which launches ``csrc/compact.cu``, the port of
-``_compact_kernel``: each segment trimmed to its bytes, the segments joined
-with no stuffing and no markers, one thread block per (segment, 4 KB
-chunk) at offsets from a cumsum of the byte counts. On CPU tensors each
-wrapper runs its plain twin (``*_plain``).
+scan. Their plain twins (``*_plain``) stay on jpegtpu's two-step form:
+the tables of ``stuff_precompute`` / ``stuff_precompute_chunks`` (jpegtpu's
+``_stuff_precompute``), then a scatter. With ``device_stuff=False`` the
+encoder takes ``compact_segments`` instead, which launches
+``csrc/compact.cu``, the port of ``_compact_kernel``: each segment trimmed
+to its bytes, the segments joined with no stuffing and no markers, one
+thread block per (segment, 4 KB chunk) at offsets from a cumsum of the
+byte counts. On CPU tensors each wrapper runs its plain twin.
 """
 
 from __future__ import annotations
@@ -38,16 +41,16 @@ from jpegtpu_torch.kernels import _build
 CHUNK_WORDS = 1024                  # one 4 KB chunk of segment words
 CHUNK_BYTES = 4 * CHUNK_WORDS
 
-STUFF = _build.Kernel("jt_stuff_segments", [
-    _build.PTR, _build.PTR, _build.PTR,   # words, nbytes, seg_start
-    _build.PTR, _build.PTR,               # mnum, out
-    _build.I64, _build.I64])              # n_seg, stride
-
-STUFF_CHUNKS = _build.Kernel("jt_stuff_chunks", [
-    _build.PTR, _build.PTR, _build.PTR,   # words, chunk_off, in_chunk
-    _build.PTR, _build.PTR, _build.PTR,   # seg_end, nchunks, mnum
-    _build.PTR,                           # out
-    _build.I64, _build.I64, _build.I64])  # n_seg, stride, chunks a segment
+# The two launchers of csrc/stuff.cu's one kernel body.
+_STUFF_ARGS = [_build.PTR, _build.PTR, _build.PTR,   # words, bits, mnum
+               _build.PTR, _build.PTR, _build.PTR,   # out, bounds, scratch
+               _build.I64, _build.I64]               # n_seg, stride
+STUFF = _build.Kernel("jt_stuff_segments",
+                      _STUFF_ARGS + [_build.I64])    # + segments an image
+STUFF_CHUNKS = _build.Kernel("jt_stuff_chunks", _STUFF_ARGS)
+# int64 words of the stuffing kernel's scratch before its status words (the
+# ticket counter, then padding); csrc/stuff.cu's kScratchHead.
+STUFF_SCRATCH_HEAD = 16
 
 COMPACT = _build.Kernel("jt_compact_segments", [
     _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # words, nbytes, off, out
@@ -58,6 +61,19 @@ def scan_capacity(n_seg: int, seg_words: int) -> int:
     """Bytes that hold any scan of n_seg segments of seg_words words: every
     byte stuffed, plus one 2-byte RST marker per segment."""
     return n_seg * (8 * seg_words + 2)
+
+
+def stuff_tiles(n_seg: int, seg_words: int) -> int:
+    """4 KB chunks of n_seg segments of seg_words words, ceil(seg_words /
+    1024) each (at least one): the most tiles the stuffing kernel's chain
+    can hold, each with a status word in its scratch."""
+    return n_seg * max(1, -(-seg_words // CHUNK_WORDS))
+
+
+def stuff_scratch_words(n_seg: int, seg_words: int) -> int:
+    """int64 words of the stuffing kernel's scratch: the ticket counter and
+    its padding, then one status word a chunk."""
+    return STUFF_SCRATCH_HEAD + stuff_tiles(n_seg, seg_words)
 
 
 @functools.lru_cache(maxsize=64)
@@ -126,7 +142,8 @@ def stuff_precompute(seg_words: torch.Tensor, seg_bits: torch.Tensor,
     [n_seg] int64, each image's first byte ``img_off`` [n_seg / spi]
     int64, total bytes int64 scalar) of the scan that
     ``compact_segments_stuffed_grouped`` writes with marker table mnum, for
-    images of spi = segs_per_image segments (default one image)."""
+    images of spi = segs_per_image segments (default one image); the
+    plain twin's tables."""
     n_seg, w = seg_words.shape
     nbytes = (seg_bits.to(torch.int64) + 7) >> 3
     # The 0xFF bytes among each segment's first nbytes, in one pass over a
@@ -145,9 +162,10 @@ def stuff_precompute(seg_words: torch.Tensor, seg_bits: torch.Tensor,
 def stuff_precompute_chunks(seg_words: torch.Tensor, seg_bits: torch.Tensor,
                             mnum: torch.Tensor
                             ) -> Tuple[torch.Tensor, ...]:
-    """The chunk tables of ``compact_segments_stuffed`` (jpegtpu's
-    ``_stuff_precompute``, ``compact.py:192-231``), for segment words
-    [n_seg, W] cut into f = ceil(W / 1024) chunks of 1024 words:
+    """The chunk tables of ``compact_segments_stuffed``'s plain twin
+    (jpegtpu's ``_stuff_precompute``, ``compact.py:192-231``), for segment
+    words [n_seg, W] cut into f = ceil(W / 1024) chunks of 1024 words
+    (chunk_off is the kernel's exclusive tile prefix):
 
         chunk_off [n_seg, f] int64  stuffed output offset of each chunk
         out_chunk [n_seg, f] int64  stuffed bytes of each chunk
@@ -206,30 +224,18 @@ def compact_segments_stuffed(seg_words: torch.Tensor, seg_bits: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Segment streams [n_seg, W] int32 (u32 bit patterns, 1-padded) and
     seg_bits [n_seg] -> (u8 buffer [n_seg*(8W+2)], total bytes int64
-    scalar), in one chain of 4 KB chunks, each chunk its own thread block.
-    mnum [n_seg] (default ``marker_table(n_seg, restart)``) is the RST
-    marker byte after each segment, 0 for none. The scan is the buffer's
-    first ``total`` bytes; bytes past it are unspecified."""
+    scalar), in one chain of 4 KB tiles (``jt_stuff_chunks``). mnum
+    [n_seg] (default ``marker_table(n_seg, restart)``) is the RST marker
+    byte after each segment, 0 for none. The scan is the buffer's first
+    ``total`` bytes; bytes past it are unspecified."""
     if seg_words.device.type == "cpu":
         return compact_segments_stuffed_plain(seg_words, seg_bits, restart,
                                               mnum)
-    n_seg, w = seg_words.shape
-    seg_words = seg_words.to(torch.int32).contiguous()
-    mnum = (marker_table(n_seg, restart, device=seg_words.device)
-            if mnum is None else mnum.to(torch.int32).contiguous())
-    if mnum.shape != (n_seg,):
-        raise ValueError(f"mnum must be [{n_seg}], got {tuple(mnum.shape)}")
-    chunk_off, _, in_chunk, seg_end, nchunks, _, total = \
-        stuff_precompute_chunks(seg_words, seg_bits, mnum)
-    _build.check_cuda(seg_words, chunk_off, in_chunk, seg_end, nchunks, mnum)
-    out = torch.empty(scan_capacity(n_seg, w), dtype=torch.uint8,
-                      device=seg_words.device)
-    STUFF_CHUNKS.launch(out.device, seg_words.data_ptr(),
-                        chunk_off.data_ptr(), in_chunk.data_ptr(),
-                        seg_end.data_ptr(), nchunks.data_ptr(),
-                        mnum.data_ptr(), out.data_ptr(), n_seg, w,
-                        chunk_off.shape[1])
-    return out, total
+    n_seg = seg_words.shape[0]
+    if mnum is None:
+        mnum = marker_table(n_seg, restart, device=seg_words.device)
+    out, bounds = _stuff(STUFF_CHUNKS, seg_words, seg_bits, mnum, 1)
+    return out, bounds[-1]
 
 
 def compact_segments_stuffed_grouped_plain(seg_words: torch.Tensor,
@@ -254,26 +260,48 @@ def compact_segments_stuffed_grouped(seg_words: torch.Tensor,
                                      seg_bits: torch.Tensor, restart: int,
                                      segs_per_image: int | None = None
                                      ) -> Tuple[torch.Tensor, ...]:
-    """As ``compact_segments_stuffed``, with one thread block per segment,
-    for images of segs_per_image segments each (default one image): RST
+    """As ``compact_segments_stuffed`` (``jt_stuff_segments``), for images
+    of segs_per_image segments each (default one image): RST
     0xD0 + i % 8 after segment i of an image but its last, when restart >
     0 (``marker_table``). Returns (u8 buffer, total bytes int64 scalar,
     each image's first byte in the scan [n_seg / segs_per_image] int64)."""
     if seg_words.device.type == "cpu":
         return compact_segments_stuffed_grouped_plain(seg_words, seg_bits,
                                                       restart, segs_per_image)
+    n_seg = seg_words.shape[0]
+    spi = segs_per_image or n_seg
+    mnum = marker_table(n_seg, restart, segs_per_image, seg_words.device)
+    out, bounds = _stuff(STUFF, seg_words, seg_bits, mnum, n_seg // spi, spi)
+    return out, bounds[-1], bounds[:-1]
+
+
+def _stuff(kernel: _build.Kernel, seg_words: torch.Tensor,
+           seg_bits: torch.Tensor, mnum: torch.Tensor, n_img: int, *extra
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch one of csrc/stuff.cu's launchers on CUDA tensors: (u8 scan
+    buffer, bounds [n_img + 1] int64, each image's first byte then the
+    total). Nothing runs on the card but the kernel and the memset of its
+    scratch (the casts are no-ops for the encoder's int32 inputs)."""
     n_seg, w = seg_words.shape
     seg_words = seg_words.to(torch.int32).contiguous()
-    mnum = marker_table(n_seg, restart, segs_per_image, seg_words.device)
-    nbytes, _, seg_start, img_off, total = stuff_precompute(
-        seg_words, seg_bits, mnum, segs_per_image)
-    _build.check_cuda(seg_words, nbytes, seg_start, mnum)
-    out = torch.empty(scan_capacity(n_seg, w), dtype=torch.uint8,
-                      device=seg_words.device)
-    STUFF.launch(out.device, seg_words.data_ptr(), nbytes.data_ptr(),
-                 seg_start.data_ptr(), mnum.data_ptr(), out.data_ptr(),
-                 n_seg, w)
-    return out, total, img_off
+    seg_bits = seg_bits.to(torch.int32).contiguous()
+    mnum = mnum.to(torch.int32).contiguous()
+    for name, t in (("seg_bits", seg_bits), ("mnum", mnum)):
+        if t.shape != (n_seg,):
+            raise ValueError(f"{name} must be [{n_seg}], got "
+                             f"{tuple(t.shape)}")
+    _build.check_cuda(seg_words, seg_bits, mnum)
+    dev = seg_words.device
+    out = torch.empty(scan_capacity(n_seg, w), dtype=torch.uint8, device=dev)
+    if n_seg == 0:                  # no tiles, so nothing to launch
+        return out, torch.zeros(n_img + 1, dtype=torch.int64, device=dev)
+    bounds = torch.empty(n_img + 1, dtype=torch.int64, device=dev)
+    scratch = torch.empty(stuff_scratch_words(n_seg, w), dtype=torch.int64,
+                          device=dev)
+    kernel.launch(dev, seg_words.data_ptr(), seg_bits.data_ptr(),
+                  mnum.data_ptr(), out.data_ptr(), bounds.data_ptr(),
+                  scratch.data_ptr(), n_seg, w, *extra)
+    return out, bounds
 
 
 def compact_offsets(seg_bits: torch.Tensor

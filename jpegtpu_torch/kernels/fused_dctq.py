@@ -293,8 +293,11 @@ def remember_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str,
     key = (id(m), subsampling)
 
     def drop(_):
-        if _FACTORS.get(key) is entry:
-            del _FACTORS[key]
+        # At interpreter exit the module's globals may already be cleared
+        # (set to None) when the last tensors die: nothing is left to drop.
+        factors = globals().get("_FACTORS")
+        if factors is not None and factors.get(key) is entry:
+            del factors[key]
 
     entry = (weakref.ref(m, drop), m._version, weakref.ref(bias, drop),
              bias._version, lum, chroma)

@@ -20,6 +20,7 @@ from jpegtpu_torch.encoder import EncoderTables
 from jpegtpu_torch.entropy import scan
 from jpegtpu_torch.kernels import (compact, entropy_oracles, entropy_pack,
                                    fused_dctq, fused_pipeline)
+from test_torch_stuff import CHUNK_CASES, chunk_case
 
 pytestmark = pytest.mark.gpu
 
@@ -291,6 +292,130 @@ def test_stuffing_kernel_per_image_markers(dev, spi):
     assert int(total) == int(total_p) and torch.equal(off, off_p)
     assert off.shape == (n_seg // spi,)
     assert torch.equal(buf[:int(total)], buf_p[:int(total)])
+
+
+# The two stuffing wrappers (one kernel body, csrc/stuff.cu) and the
+# number of outputs of each: K4 also gives each image's first byte.
+STUFFERS = {"compact_segments_stuffed_grouped": compact.STUFF,
+            "compact_segments_stuffed": compact.STUFF_CHUNKS}
+
+
+def _stuffed_like_twin(fn, words, bits, restart, *extra):
+    """The wrapper fn on the card against its plain twin: the scan's bytes,
+    its total and (K4) each image's first byte. Returns the kernel's
+    outputs."""
+    got = getattr(compact, fn)(words, bits, restart, *extra)
+    want = getattr(compact, fn + "_plain")(words, bits, restart, *extra)
+    total = int(want[1])
+    assert int(got[1]) == total
+    assert torch.equal(got[0][:total], want[0][:total])
+    if len(want) == 3:
+        assert torch.equal(got[2], want[2])
+    return got
+
+
+@pytest.mark.parametrize("fn", sorted(STUFFERS))
+@pytest.mark.parametrize("name", CHUNK_CASES)
+def test_stuffing_kernel_chunk_cases(dev, name, fn):
+    """The look-back stuffing kernel through both launchers on the restart
+    tests' chunk cases: a segment whose byte count is a whole 4 KB tile,
+    0xFF as a tile's last valid byte, counts that end inside a word with a
+    0xFF past them."""
+    words, bits, restart = chunk_case(name)
+    _stuffed_like_twin(fn, torch.from_numpy(words.view(np.int32)).to(dev),
+                       torch.from_numpy(bits).to(dev), restart)
+
+
+def test_stuffing_no_segments_launches_nothing(dev):
+    """Zero segments: a total of 0, as the twin gives, and no launch."""
+    compact.STUFF_CHUNKS.launches = 0
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    _, total = _stuffed_like_twin(
+        "compact_segments_stuffed",
+        torch.zeros((0, 5), dtype=torch.int32, device=dev), none, 1, none)
+    assert int(total) == 0 and compact.STUFF_CHUNKS.launches == 0
+
+
+@pytest.mark.parametrize("restart", [0, 1])
+@pytest.mark.parametrize("fn", sorted(STUFFERS))
+def test_stuffing_kernel_zero_and_whole_tile_segments(dev, fn, restart):
+    """Segments of zero bytes (first, between others, last) beside
+    segments of exactly one and two 4 KB tiles and one of 5 bytes; with
+    restart 1 every segment but the last carries a marker, a zero-byte
+    one on its tile 0."""
+    words = _segments(6, 2 * 1024 + 7, 8, ff_share=0.3)
+    bits = torch.tensor([0, 8 * 4096, 0, 8 * 8192, 37, 0], device=dev)
+    _stuffed_like_twin(fn, words, bits, restart)
+
+
+@pytest.mark.parametrize("fn", sorted(STUFFERS))
+def test_stuffing_kernel_chain_longer_than_the_grid(dev, fn):
+    """40,000 one-tile segments, far more tiles than the persistent grid
+    holds blocks, with per-image markers (images of 8 segments) for K4."""
+    n_seg, w = 40000, 3
+    words = _segments(n_seg, w, 10, ff_share=0.2)
+    bits = torch.from_numpy(np.random.default_rng(12).integers(
+        0, 32 * w + 1, n_seg)).to(dev)
+    extra = (8,) if fn == "compact_segments_stuffed_grouped" else ()
+    _stuffed_like_twin(fn, words, bits, 1, *extra)
+
+
+def test_stuffing_many_tiles_444_restart_1(dev):
+    """A 4:4:4 image with a marker after every MCU: 375 segments, one tile
+    each, stuffed by K4 alone, bytes equal to the CPU path's."""
+    img = IMAGES["random_120x200"]()
+    kw = dict(quality=90, subsampling="444", restart_interval=1)
+    got, launches = _launches(img, **kw)
+    assert launches == [1, 1, 1, 1, 0, 0]
+    assert got == jpegtpu_torch.encode(img, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("n_seg,w", [(64, 3000), (20000, 3)])
+@pytest.mark.parametrize("fn", sorted(STUFFERS))
+def test_stuffing_kernel_repeats_identically(dev, fn, n_seg, w):
+    """50 launches on one input (segments of three tiles; one-tile
+    segments, taken many tiles a ticket; many 0xFF bytes, images of 4
+    segments for K4) give the twin's outputs every time: no look-back race
+    shows."""
+    words = _segments(n_seg, w, 9, ff_share=0.1)
+    bits = torch.from_numpy(np.random.default_rng(13).integers(
+        0, 32 * w + 1, n_seg)).to(dev, torch.int32)
+    extra = (4,) if fn == "compact_segments_stuffed_grouped" else ()
+    first = _stuffed_like_twin(fn, words, bits, 1, *extra)
+    total = int(first[1])
+    for _ in range(50):
+        got = getattr(compact, fn)(words, bits, 1, *extra)
+        assert int(got[1]) == total
+        assert torch.equal(got[0][:total], first[0][:total])
+        if len(got) == 3:
+            assert torch.equal(got[2], first[2])
+
+
+def test_stuffing_launches_one_kernel_and_no_glue(dev, monkeypatch):
+    """Each stuffing wrapper launches its one kernel once and calls none
+    of the twins' tables (stuff_precompute*), alone and inside encodes at
+    restart "rows" (K4) and 0 (K5)."""
+    img = IMAGES["random_120x200"]()
+    want = {r: jpegtpu_torch.encode(img, restart_interval=r, device="cpu")
+            for r in ("rows", 0)}
+
+    def glue(*args, **kwargs):
+        raise AssertionError("stuffing glue on the CUDA path")
+
+    monkeypatch.setattr(compact, "stuff_precompute", glue)
+    monkeypatch.setattr(compact, "stuff_precompute_chunks", glue)
+    words = _segments(5, 1500, 14, ff_share=0.1)
+    bits = torch.tensor([100, 0, 8 * 4096, 47000, 9], device=dev)
+    for fn, kernel in STUFFERS.items():
+        for k in KERNELS:
+            k.launches = 0
+        getattr(compact, fn)(words, bits, 1)
+        assert [k.launches for k in KERNELS] == [int(k is kernel)
+                                                 for k in KERNELS]
+    for restart, one_seg in (("rows", False), (0, True)):
+        got, launches = _launches(img, restart_interval=restart)
+        assert launches == [1, 1, 1, int(not one_seg), int(one_seg), 0]
+        assert got == want[restart]
 
 
 @pytest.mark.parametrize("q", [1, 50, 90, 100])

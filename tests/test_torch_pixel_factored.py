@@ -3,11 +3,15 @@ factors reproduce ``mcu_operator`` bit for bit, every column's sum is
 exact in float64 in any order, an operator that does not factor raises,
 the factored plain form gives the dense twin's coefficients, its DC plane
 (K12's) and, on the image the int8 view restores, the i8 twin's (K13's),
-and ``Kernel.launch`` runs on its operands' device. Imports no JAX: the port's
+``Kernel.launch`` runs on its operands' device, and a process that made
+``EncoderTables`` exits quietly. Imports no JAX: the port's
 ``mcu_operator`` is pinned to jpegtpu's by ``tests/test_torch_tables.py``
 and ``tests/test_torch_modes.py``."""
 
 import contextlib
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -287,3 +291,18 @@ def test_kernel_launch_enters_the_operands_device(index, monkeypatch):
     with pytest.raises(RuntimeError, match="jt_test: CUDA error 719"):
         k.launch(dev, 1234, 5)
     assert k.launches == 1
+
+
+def test_factor_table_is_quiet_at_exit():
+    """The factor table's weak-reference callbacks may run after the
+    module's globals are cleared at interpreter exit (ROADMAP fault 3.9): a
+    process that made tables in every mode exits with nothing ignored on
+    stderr."""
+    code = ("from jpegtpu_torch.encoder import EncoderTables\n"
+            "t = [EncoderTables.for_quality(90, m, 'cpu')\n"
+            "     for m in ('420', '422', '444', '444s', 'gray')]\n")
+    res = subprocess.run([sys.executable, "-c", code],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "Exception ignored" not in res.stderr, res.stderr

@@ -21,6 +21,10 @@ from jpegtpu_torch import encode as t_encode
 from jpegtpu_torch.encoder import geometry
 from jpegtpu_torch.kernels import compact as t_compact
 from jpegtpu_torch.kernels import entropy_pack as t_entropy_pack
+from test_torch_stuff import CHUNK_CASES
+from test_torch_stuff import chunk_case as _chunk_case
+from test_torch_stuff import set_stream_byte as _set_stream_byte
+from test_torch_stuff import stuff_words as _words
 
 _stuff_precompute = jax.jit(compact._stuff_precompute, static_argnums=(2,))
 _block_symbols = jax.jit(scan.block_symbols)
@@ -38,19 +42,6 @@ def _random(h, w, seed):
                                                 dtype=np.uint8)
 
 
-def _words(n_seg, frames, seed, ff_share=0.05):
-    """[n_seg, frames*1024] u32 words with a share of 0xFF bytes."""
-    rng = np.random.default_rng(seed)
-    by = rng.integers(0, 256, (n_seg, frames * 4096), dtype=np.uint8)
-    by[rng.random(by.shape) < ff_share] = 0xFF
-    return by.view(np.uint32).copy()
-
-
-def _set_stream_byte(words, seg, i, value):
-    """Stream byte i of a segment (big-endian words) = value."""
-    words.view(np.uint8)[seg, 4 * (i // 4) + 3 - i % 4] = value
-
-
 def _to_t(words):
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
 
@@ -60,30 +51,6 @@ def _mnum(n_seg, restart):
     within = np.arange(n_seg) % n_seg
     return np.where((restart > 0) & (within != n_seg - 1),
                     0xD0 + within % 8, 0).astype(np.int32)
-
-
-def _chunk_case(name):
-    """(words [n_seg, F*1024] u32, seg_bits [n_seg], restart)."""
-    if name == "one_segment_3_chunks":
-        return _words(1, 4, 1), np.array([8 * (3 * 4096 + 700)]), 0
-    if name == "several_segments":
-        return (_words(3, 2, 2, ff_share=0.3),
-                np.array([8 * 5000 + 3, 8 * 4096, 8 * 10]), 5)
-    if name == "ff_last_byte_of_chunk":
-        w = _words(2, 3, 3)
-        for i in (4095, 2 * 4096 - 1, 2 * 4096 + 99):
-            _set_stream_byte(w, 0, i, 0xFF)
-        _set_stream_byte(w, 1, 4095, 0xFF)
-        return w, np.array([8 * (2 * 4096 + 100), 8 * 4096]), 1
-    if name == "ends_mid_word":
-        w = _words(2, 2, 4)
-        _set_stream_byte(w, 0, 4098, 0xFF)   # past the count: not counted
-        return w, np.array([8 * 4098 - 5, 8 * 6 + 1]), 0
-    raise KeyError(name)
-
-
-CHUNK_CASES = ["one_segment_3_chunks", "several_segments",
-               "ff_last_byte_of_chunk", "ends_mid_word"]
 
 
 @pytest.mark.parametrize("name", CHUNK_CASES)
