@@ -419,16 +419,33 @@ def main() -> int:
         n_by, e_by = diff(buf_[:tot_], buf_p_[:tot_])
         return n_nb + n_by, max(e_nb, e_by), tot_
 
+    def seg_diff(sw_, sb_, sw_p, sb_p):
+        """Segments against their twin's: seg_bits, and each segment's
+        first ceil(seg_bits / 8) bytes (the card leaves the rest
+        undefined)."""
+        n_b, e_b = diff(sb_, sb_p)
+        nb = (sb_p.to(torch.int64) + 7) // 8
+        keep = (compact._stream_pos(sw_.shape[1], dev)[None, :] <
+                nb[:, None])
+        by = sw_.contiguous().view(torch.uint8).reshape(sw_.shape[0], -1)
+        by_p = sw_p.contiguous().view(torch.uint8).reshape(sw_.shape[0], -1)
+        d = (by.to(torch.int64) - by_p.to(torch.int64)).abs() * keep
+        return n_b + int((d != 0).sum()), max(e_b, int(d.max()) if
+                                               d.numel() else 0)
+
+    def past(words, nbits):
+        """Words of each row at or past ceil(nbits / 32) that are not
+        SENTINEL: written where nothing may be."""
+        j = torch.arange(words.shape[1], device=dev)[None, :]
+        beyond = j >= (nbits.to(torch.int64)[:, None] + 31) // 32
+        return int((beyond & (words != SENTINEL)).sum())
+
     def seg_set(c, sub, r):
         """(segment words, seg_bits, r) of coefficients c at interval r,
-        through K2 and K3."""
-        n_luma = EncoderConfig(subsampling=sub).n_luma
-        nm, b = c.shape[0], c.shape[1] // 64
-        ns, mps = geometry(nm, r)
-        d = scan.dc_diffs_from_dc(c[:, ::64], n_luma, r).reshape(-1)
-        k = (torch.arange(nm * b, device=dev) % b >= n_luma).to(torch.int32)
-        a, bl = entropy_pack.block_pack_mcu_pairs(c, k, d, *luts)
-        a, bl = entropy_pack.pad_segments(a, bl, ns, mps)
+        through K2 and K3 as the encoder calls them."""
+        ns, mps = geometry(c.shape[0], r)
+        a, bl = entropy_pack.block_pack_mcu_segments(
+            c, EncoderConfig(subsampling=sub).n_luma, r, luts)
         return (*entropy_pack.seg_merge_mcu(a, bl, ns, mps), r)
 
     errs = {}
@@ -502,24 +519,140 @@ def main() -> int:
                max(e_c, e_d))
         del out_s, dc_s, c_p
 
-    dcd = scan.dc_diffs_from_dc(coeffs[:, ::64], 4, restart).reshape(-1)
-    cls = (torch.arange(n_mcu * 6, device=dev) % 6 >= 4).to(torch.int32)
-    mw, ml = entropy_pack.block_pack_mcu_pairs(coeffs, cls, dcd, *luts)
-    mw_p, ml_p = entropy_pack.block_pack_mcu_pairs_plain(coeffs, cls, dcd,
-                                                         *luts)
-    n_bad, errs["block_pack"] = stream_diff(mw, ml, mw_p, ml_p)
-    report(f"K2 block pack mlens {tuple(ml.shape)} + masked words "
-           f"{tuple(mw.shape)}", n_bad, errs["block_pack"])
-    del mw_p, ml_p
+    # K2 (both launchers) and K3 on the inputs of every encode path: the
+    # coefficients of its pixel route (the staged ops for gray; K12's DC
+    # plane on the PIXEL_DC route) at its interval. Each wrapper
+    # STUFF_REPEATS times against the twins (K2: lengths and stream bits;
+    # K3: seg_bits and each segment's first ceil(seg_bits / 8) bytes), and
+    # each launcher once onto SENTINEL-filled outputs: K2 writes the first
+    # ceil(mlen / 32) words of each MCU row and nothing past them, K3 the
+    # first ceil(seg_bits / 32) words of each segment (the 1-padded byte,
+    # then zeros, as the twin's) and nothing past them. Then the consumers
+    # on those SENTINEL segments (0xFF bytes past every segment's data): the
+    # stuffing kernel (K4, or K5 for one segment) and K6 against their twins
+    # on the twin's zero-filled segments.
+    def k2k3_inputs():
+        for sub_, ri in PATHS:
+            t_ = tabs[sub_]
+            xi = x[..., 0].contiguous() if sub_ == "gray" else x
+            if fused_dctq.uses_fused(h, w, sub_):
+                c_ = fused_dctq.encode_blocks_pairs(xi, t_.m, t_.bias, sub_)
+            else:
+                c_ = ops.encode_blocks(xi, t_.block_m, t_.block_bias, sub_)
+                c_ = c_.reshape(c_.shape[0], -1)
+            yield f"{sub_} restart {ri!r}", sub_, c_, None, ri
+        c_, dc_ = fused_dctq.encode_blocks_pairs(x, tables.m, tables.bias,
+                                                 with_dc=True)
+        yield "420 rows, PIXEL_DC (K12's DC plane)", "420", c_, dc_, "rows"
+        c_ = fused_dctq.encode_blocks_batch(
+            torch.from_numpy(batch_images(img)).to(dev), tables, "420")
+        yield f"batch {BATCH} x 1080p 420 rows", "420", c_, None, bmx
 
+    bmy, bmx = ops.mcu_grid(*GOLDEN_SHAPE, "420")
+    errs.update(block_pack=0, seg_merge=0)
+    for label, sub, c, dc, ri in k2k3_inputs():
+        cfg = EncoderConfig(subsampling=sub, restart_interval=ri)
+        r = cfg.resolve_restart(ops.mcu_grid(h, w, sub)[1])
+        nm, g = c.shape[0], c.shape[1] // 64
+        mw_ = entropy_pack.mcu_words(g)
+        ns, mps = geometry(nm, r)
+        nl = cfg.n_luma
+        mw_p, ml_p = entropy_pack.block_pack_mcu_segments_plain(
+            c, nl, r, luts, dc)
+        dcd_ = scan.dc_diffs_from_dc(c[:, ::64] if dc is None else
+                                     dc[:, :g], nl, r).reshape(-1)
+        cls_ = entropy_pack.block_classes(nm, g, nl, dev)
+        n_bad = e = n_past = 0
+        for _ in range(STUFF_REPEATS):
+            for got in (entropy_pack.block_pack_mcu_segments(c, nl, r, luts,
+                                                             dc),
+                        entropy_pack.block_pack_mcu_pairs(c, cls_, dcd_,
+                                                          *luts)):
+                n_, e_ = stream_diff(*got, mw_p, ml_p)
+                n_bad, e = n_bad + n_, max(e, e_)
+        a_s = torch.full((nm, mw_), SENTINEL, dtype=torch.int32, device=dev)
+        l_s = torch.full((nm,), SENTINEL, dtype=torch.int32, device=dev)
+        src, strides = (c, (g * 64, 64)) if dc is None else (dc, (8, 1))
+        lut_ptrs = [t.data_ptr() for t in luts]
+        entropy_pack.BLOCK_PACK_SEGMENTS.launch(
+            dev, c.data_ptr(), src.data_ptr(), *strides, *lut_ptrs,
+            a_s.data_ptr(), l_s.data_ptr(), nm, g, nl, r, mw_)
+        b_s = torch.full_like(a_s, SENTINEL)
+        bl_s = torch.full_like(l_s, SENTINEL)
+        entropy_pack.BLOCK_PACK.launch(
+            dev, c.data_ptr(), cls_.data_ptr(), dcd_.data_ptr(), *lut_ptrs,
+            b_s.data_ptr(), bl_s.data_ptr(), nm, g, mw_)
+        for ws, ls in ((a_s, l_s), (b_s, bl_s)):
+            n_, e_ = stream_diff(ws, ls, mw_p, ml_p)
+            n_bad, e, n_past = n_bad + n_, max(e, e_), n_past + past(ws,
+                                                                    ml_p)
+        errs["block_pack"] = max(errs["block_pack"], e)
+        report(f"K2 block pack {label}: {nm} MCUs of {g} blocks, both "
+               f"launchers {STUFF_REPEATS} times and onto SENTINEL rows: "
+               f"mlens + stream bits; {n_past} words written past "
+               f"ceil(mlen / 32)", n_bad + n_past, e)
+        del b_s, bl_s, dcd_, cls_
+
+        sw_p, sb_p = entropy_pack.seg_merge_mcu_plain(mw_p, ml_p, ns, mps)
+        n_bad = e = 0
+        for _ in range(STUFF_REPEATS):
+            n_, e_ = seg_diff(*entropy_pack.seg_merge_mcu(a_s, l_s, ns, mps),
+                              sw_p, sb_p)
+            n_bad, e = n_bad + n_, max(e, e_)
+        seg_w = sw_p.shape[1]
+        s_s = torch.full((ns, seg_w), SENTINEL, dtype=torch.int32,
+                         device=dev)
+        sb_s = torch.full((ns,), SENTINEL, dtype=torch.int32, device=dev)
+        n_scr = entropy_pack.seg_merge_scratch_words(ns, mps)
+        scr = torch.empty(max(n_scr, 1), dtype=torch.int64, device=dev)
+        entropy_pack.SEG_MERGE.launch(
+            dev, a_s.data_ptr(), l_s.data_ptr(), s_s.data_ptr(),
+            sb_s.data_ptr(), scr.data_ptr() if n_scr else None, nm, ns, mps,
+            mw_, seg_w)
+        n_, e_ = seg_diff(s_s, sb_s, sw_p, sb_p)
+        # The segment's valid words whole: the padded byte, then zeros.
+        n_w, e_w = stream_diff(s_s, (sb_p.to(torch.int64) + 31) // 32 * 32,
+                               sw_p, (sb_p.to(torch.int64) + 31) // 32 * 32)
+        n_past = past(s_s, sb_p)
+        errs["seg_merge"] = max(errs["seg_merge"], e, e_, e_w)
+        report(f"K3 seg merge {label}: {ns} segments of {mps} MCUs"
+               f"{' (the last ragged)' if ns * mps > nm else ''}, "
+               f"{STUFF_REPEATS} launches and onto SENTINEL rows: seg_bits "
+               f"+ the first ceil(seg_bits / 8) bytes, the valid words "
+               f"whole; {n_past} words written past ceil(seg_bits / 32)",
+               n_bad + n_ + n_w + n_past, max(e, e_, e_w))
+        del a_s, l_s, mw_p, ml_p
+        spi_ = ns // BATCH if "batch" in label else None
+        stuff_k, stuff_p = ((compact.compact_segments_stuffed_grouped,
+                             compact.compact_segments_stuffed_grouped_plain)
+                            if ns > 1 else
+                            (compact.compact_segments_stuffed,
+                             compact.compact_segments_stuffed_plain))
+        extra = (spi_,) if ns > 1 else ()
+        buf_, got_tot = stuff_k(s_s, sb_s, r, *extra)[:2]
+        want_, tot_ = stuff_p(sw_p, sb_p, r, *extra)[:2]
+        tot_ = int(tot_)
+        n_s, e_s = diff(buf_[:tot_], want_[:tot_])
+        n_s += int(int(got_tot) != tot_)
+        buf_, nb_ = compact.compact_segments(s_s, sb_s)
+        want_, nb_p = compact.compact_segments_plain(sw_p, sb_p)
+        n_c, e_c = diff(buf_[:int(nb_p.sum())], want_[:int(nb_p.sum())])
+        n_nb, e_nb = diff(nb_, nb_p)
+        report(f"{'K4' if ns > 1 else 'K5'} and K6 {label} on K3's SENTINEL "
+               f"segments against their twins on the twin's: {tot_} "
+               f"stuffed bytes, {int(nb_p.sum())} compacted",
+               n_s + n_c + n_nb, max(e_s, e_c, e_nb))
+        del s_s, sb_s, sw_p, sb_p, buf_, want_, c, dc
+
+    # The main path's MCU streams and segments (K2 -> K3), and the
+    # restart-0 program's single segment, for the checks and timings below.
+    mw, ml = entropy_pack.block_pack_mcu_segments(coeffs, 4, restart, luts)
     sw, sb = entropy_pack.seg_merge_mcu(mw, ml, n_seg, restart)
-    sw_p, sb_p = entropy_pack.seg_merge_mcu_plain(mw, ml, n_seg, restart)
-    n_b, e_b = diff(sb, sb_p)
-    n_w, e_w = diff(sw, sw_p)
-    errs["seg_merge"] = max(e_b, e_w)
-    report(f"K3 seg merge seg_bits {tuple(sb.shape)} + words "
-           f"{tuple(sw.shape)}", n_b + n_w, errs["seg_merge"])
-    del sw_p
+    dcd = scan.dc_diffs_from_dc(coeffs[:, ::64], 4, restart).reshape(-1)
+    cls = entropy_pack.block_classes(n_mcu, 6, 4, dev)
+    mw0, ml0 = entropy_pack.block_pack_mcu_segments(coeffs, 4, 0, luts)
+    sw0, sb0 = entropy_pack.seg_merge_mcu(mw0, ml0, 1, n_mcu)
+    del mw0, ml0
 
     n_bad, errs["stuff"], total = stuff_diff(
         compact.compact_segments_stuffed_grouped,
@@ -527,18 +660,6 @@ def main() -> int:
     report(f"K4 stuffing, {n_seg} segments, total {total} bytes", n_bad,
            errs["stuff"])
 
-    # The restart-0 program's single segment: its DC chain has no reset,
-    # and all n_mcu MCUs merge into one stream.
-    dcd0 = scan.dc_diffs_from_dc(coeffs[:, ::64], 4, 0).reshape(-1)
-    mw0, ml0 = entropy_pack.block_pack_mcu_pairs(coeffs, cls, dcd0, *luts)
-    sw0, sb0 = entropy_pack.seg_merge_mcu(mw0, ml0, 1, n_mcu)
-    sw0_p, sb0_p = entropy_pack.seg_merge_mcu_plain(mw0, ml0, 1, n_mcu)
-    n_b, e_b = diff(sb0, sb0_p)
-    n_w, e_w = diff(sw0, sw0_p)
-    errs["seg_merge"] = max(errs["seg_merge"], e_b, e_w)
-    report(f"K3 seg merge, one segment of {n_mcu} MCUs", n_b + n_w,
-           max(e_b, e_w))
-    del sw0_p, mw0
     n_chunks = -(-sw0.shape[1] // compact.CHUNK_WORDS)
     live = -(-int(sb0[0]) // (8 * compact.CHUNK_BYTES))
     n_bad, errs["stuff_chunks"], total0 = stuff_diff(
@@ -568,7 +689,6 @@ def main() -> int:
     # of the 8 x 1920x1080 batch (68 segments an image).
     batch = batch_images(img)
     xb = torch.from_numpy(batch).to(dev)
-    bmy, bmx = ops.mcu_grid(*GOLDEN_SHAPE, "420")
     swb, sbb, _ = seg_set(fused_dctq.encode_blocks_batch(xb, tables, "420"),
                           "420", bmx)
     n_bad, e, total_b = stuff_diff(
@@ -669,11 +789,14 @@ def main() -> int:
            f"{tuple(x8.shape)} against the i8 twin", n_bad, e)
 
     # 4. Every path end to end, through the public entry point, each with
-    # the launch counts set to 0 just before it and read just after.
+    # the launch counts set to 0 just before it and read just after. A
+    # kernel's count is the sum over its launchers (K2 has two: jpegtpu's
+    # signature and the encoder's).
     kernels = (("pixel", fused_dctq.PIXEL, "pixel_mma.cu",
                 "jpegtpu/kernels/fused_dctq.py:388"),
-               ("block_pack", entropy_pack.BLOCK_PACK, "block_pack.cu",
-                "jpegtpu/kernels/entropy_pack.py:619"),
+               ("block_pack", (entropy_pack.BLOCK_PACK,
+                               entropy_pack.BLOCK_PACK_SEGMENTS),
+                "block_pack.cu", "jpegtpu/kernels/entropy_pack.py:619"),
                ("seg_merge", entropy_pack.SEG_MERGE, "seg_merge.cu",
                 "jpegtpu/kernels/entropy_pack.py:879"),
                ("stuff", compact.STUFF, "stuff.cu",
@@ -746,12 +869,8 @@ def main() -> int:
         else:
             c = ops.encode_blocks(xi, t.block_m, t.block_bias, sub)
             c = c.reshape(c.shape[0], -1)
-        nm, b = c.shape[0], c.shape[1] // 64
-        d = scan.dc_diffs_from_dc(c[:, ::64], cfg.n_luma, r).reshape(-1)
-        k = (torch.arange(nm * b, device=dev) % b >= cfg.n_luma
-             ).to(torch.int32)
-        a, bl = entropy_pack.block_pack_mcu_pairs_plain(c, k, d, *luts)
-        a, bl = entropy_pack.pad_segments(a, bl, ns, mps)
+        a, bl = entropy_pack.block_pack_mcu_segments_plain(c, cfg.n_luma, r,
+                                                           luts)
         s, sbits = entropy_pack.seg_merge_mcu_plain(a, bl, ns, mps)
         if not device_stuff:
             out, nb = compact.compact_segments_plain(s, sbits)
@@ -765,13 +884,18 @@ def main() -> int:
             scan_bytes = out[:int(tot)].cpu().numpy().tobytes()
         return jfif.wrap_jpeg(hh, ww, QUALITY, sub, r, scan_bytes)
 
+    def handles(k):
+        return k if isinstance(k, tuple) else (k,)
+
     def counted(fn):
         """fn() with every launch count set to 0 just before it; (its
         result, the launches it made per kernel)."""
         for _, k, _, _ in kernels:
-            k.launches = 0
+            for kh in handles(k):
+                kh.launches = 0
         out = fn()
-        counts = {n: k.launches for n, k, _, _ in kernels}
+        counts = {n: sum(kh.launches for kh in handles(k))
+                  for n, k, _, _ in kernels}
         for n in launches:
             launches[n] += counts[n]
         return out, counts
@@ -917,18 +1041,19 @@ def main() -> int:
             errs[n] = max(errs[n], e0, e1)
             report(what, n0 + n1, max(e0, e1))
         del checks
+        # K2's stream bits (bits past each length are undefined on the
+        # card), and K8's rows past K2's width are zero.
         kw = pw.shape[1]
-        (n0, e0), (n1, e1) = diff(ml8, pml), diff(mw8[:, :kw], pw)
+        n1, e1 = stream_diff(mw8[:, :kw], ml8, pw, pml)
         n2 = int(mw8[:, kw:].count_nonzero())
         report(f"K8 of K7 against K2's MCU streams {label}: mlens, the "
-               f"first {kw} words, {n2} nonzero words past them", n0 + n1 + n2,
-               max(e0, e1))
-        nw = int(-(-psb.to(torch.int64).max() // 32))
+               f"stream bits of the first {kw} words, {n2} nonzero words "
+               f"past them", n1 + n2, e1)
         for rung, (rw, rb) in rungs.items():
-            (n0, e0), (n1, e1) = diff(rb, psb), diff(rw[:, :nw], psw[:, :nw])
+            n0, e0 = seg_diff(rw[:, :psw.shape[1]], rb, psw, psb)
             report(f"ladder {rung} rung {label} against K2 -> K3: seg_bits + "
-                   f"the first {nw} words of {ns} segments", n0 + n1,
-                   max(e0, e1))
+                   f"each segment's first ceil(seg_bits / 8) bytes, {ns} "
+                   f"segments", n0, e0)
         if sub == "420":
             lad[r] = dict(bw=bw, bl=bl, mw8=mw8, ml8=ml8, ns=ns, mps=mps,
                           w_cap=w_cap, sb=psb,
@@ -987,10 +1112,10 @@ def main() -> int:
                                                          tables.bias),
                   lambda: fused_dctq.encode_blocks_pairs_plain(
                       x, tables.m, tables.bias)),
-        "block_pack": (lambda: entropy_pack.block_pack_mcu_pairs(
-                           coeffs, cls, dcd, *luts),
-                       lambda: entropy_pack.block_pack_mcu_pairs_plain(
-                           coeffs, cls, dcd, *luts)),
+        "block_pack": (lambda: entropy_pack.block_pack_mcu_segments(
+                           coeffs, 4, restart, luts),
+                       lambda: entropy_pack.block_pack_mcu_segments_plain(
+                           coeffs, 4, restart, luts)),
         "seg_merge": (lambda: entropy_pack.seg_merge_mcu(mw, ml, n_seg,
                                                          restart),
                       lambda: entropy_pack.seg_merge_mcu_plain(
@@ -1080,6 +1205,31 @@ def main() -> int:
     for n, keys in pixel_keys.items():
         print(f"[time] {n} kernel alone (profiler), 420 {w}x{h}: "
               f"{kernel_device_ms(pairs[n][0], *keys)} ms  [{card}]")
+    # K2 (the encoder's launcher) and K3 alone (profiler) on the main path,
+    # restart 0, 7, 420 restart 1 and 444 restart 1, each twice, in turns
+    # K2, K3, K3, K2; K3's scratch memset (restart 0 only) beside it.
+    for sub, r, what in (("420", restart, "rows (the main path)"),
+                         ("420", 0, "0"), ("420", 7, "7"), ("420", 1, "1"),
+                         ("444", 1, "1")):
+        t = tabs[sub]
+        c_ = (coeffs if sub == "420" else
+              fused_dctq.encode_blocks_pairs(x, t.m, t.bias, sub))
+        nl = EncoderConfig(subsampling=sub).n_luma
+        ns, mps = geometry(c_.shape[0], r)
+        a_, l_ = entropy_pack.block_pack_mcu_segments(c_, nl, r, luts)
+        k2 = lambda: entropy_pack.block_pack_mcu_segments(  # noqa: E731
+            c_, nl, r, luts)
+        k3 = lambda: entropy_pack.seg_merge_mcu(a_, l_, ns, mps)  # noqa
+        t2a = kernel_device_ms(k2, "block_pack_mcu_kernel<", reps=20)
+        t3a = kernel_device_ms(k3, "seg_merge_mcu_kernel(", reps=20)
+        t3b = kernel_device_ms(k3, "seg_merge_mcu_kernel(", reps=20)
+        t2b = kernel_device_ms(k2, "block_pack_mcu_kernel<", reps=20)
+        print(f"[time] K2 and K3 alone (profiler, 20 launches, in turns), "
+              f"{sub} restart {what} ({c_.shape[0]} MCUs in {ns} segments): "
+              f"K2 "
+              f"{t2a} / {t2b} ms, K3 {t3a} / {t3b} ms, K3 memset "
+              f"{kernel_device_ms(k3, 'Memset')} ms  [{card}]")
+        del a_, l_, c_
     line("K4 jt_stuff_segments on the restart-0 segment (K5's input)",
          time_ms(lambda: compact.compact_segments_stuffed_grouped(
              sw0, sb0, 0)))
@@ -1420,12 +1570,17 @@ def main() -> int:
     # The entropy kernels' integer operations, and K1's integer pixel sums,
     # are not counted.
     valid_mcu_words = int(((ml.to(torch.int64) + 31) // 32).sum())
+    valid_seg_words = int(((sb.to(torch.int64) + 31) // 32).sum())
     nbytes_rows = int(((sb.to(torch.int64) + 7) // 8).sum())
+    lut_bytes = sum(t.numel() * 4 for t in luts)
+    # K2 on the main path derives each block's class and DC difference (the
+    # DC from the coefficients it reads): the coefficients and the LUTs in,
+    # the valid MCU words and the lengths out. K3 reads the valid MCU words
+    # and the lengths and writes the valid segment words and seg_bits.
     bytes_moved = {
-        "block_pack": ((coeffs.numel() + cls.numel() + dcd.numel()) * 4 +
-                       sum(t.numel() * 4 for t in luts) +
+        "block_pack": (coeffs.numel() * 4 + lut_bytes +
                        (valid_mcu_words + ml.numel()) * 4),
-        "seg_merge": 2 * valid_mcu_words * 4 + n_mcu * 8 + n_seg * 4,
+        "seg_merge": (valid_mcu_words + n_mcu + valid_seg_words + n_seg) * 4,
         "stuff": stuff_bound["stuff"],
         "stuff_chunks": stuff_bound["stuff_chunks"],
         "compact": 2 * nbytes_rows + n_seg * 12,
@@ -1434,7 +1589,6 @@ def main() -> int:
     # segment words with their lengths, as K2's and K3's.
     n_blocks = lr["bl"].numel()
     valid_block_words = int(((lr["bl"].to(torch.int64) + 31) // 32).sum())
-    valid_seg_words = int(((sb.to(torch.int64) + 31) // 32).sum())
     bytes_moved.update({
         "block_pack_blocks": ((blocks.numel() + cls.numel() + dcd.numel() +
                                valid_block_words + n_blocks) * 4 +
@@ -1472,6 +1626,10 @@ def main() -> int:
                     "operations" if t_ops > t_bytes else "bytes")
         print(f"[bound] {n}: {by} bytes, {flops.get(n, 0.0):.0f} float64 "
               f"FLOPs -> {bound[n][0]:.6f} ms ({bound[n][1]})")
+    by = bytes_moved["block_pack"] + (cls.numel() + dcd.numel()) * 4
+    print(f"[bound] block_pack through jpegtpu's signature (class and DC "
+          f"difference read, not derived): {by} bytes -> "
+          f"{by / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes)")
 
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda",

@@ -4,8 +4,8 @@
 ``encode_batch`` / ``_encode_batch_fused``), for every subsampling mode,
 restart interval, ``device_stuff``, ``pixel_path`` and ``fuse_bp`` setting.
 
-The device program runs up to five kernels with plain torch glue between
-them:
+The device program runs up to four kernels, with no torch glue between
+them on the default path:
 
     pixel       fused_dctq.encode_blocks_batch  u8 -> coefficients, by the
                 ``pixel_path`` route: "nat" the pixel kernel (or, with
@@ -13,16 +13,15 @@ them:
                 plane), "dma" the async-copy kernel (4:2:0), "xla" a
                 float64 torch.matmul; the staged ops for gray and
                 non-8-aligned 4:4:4s on every route
-    (glue)      scan.dc_diffs_from_dc (from the DC plane where there is
-                one), the class vector
-    block pack  entropy_pack.block_pack_mcu_pairs   -> MCU bitstreams
-    or, with fuse_bp (4:2:0, 4:2:2, 4:4:4), for the three above
+    block pack  entropy_pack.block_pack_mcu_segments  -> MCU bitstreams,
+                each block's class and DC difference (from the DC plane
+                where there is one) derived in the kernel
+    or, with fuse_bp (4:2:0, 4:2:2, 4:4:4), for the two above
     fused       fused_pipeline.fused_pixel_block_pack_pairs  u8 -> MCU
                 bitstreams, the DC differences in the kernel
-    (glue)      zero-length pad MCUs for a ragged last segment, each MCU's
-                bit offset in its segment
-    seg merge   entropy_pack.seg_merge_mcu          -> segment bitstreams
-    (glue)      byte and 0xFF counts, offsets, the marker table
+    seg merge   entropy_pack.seg_merge_mcu          -> segment bitstreams,
+                the MCU lengths scanned and a ragged last segment padded in
+                the kernel
     stuffing    compact.compact_segments_stuffed_grouped (several segments)
                 or compact.compact_segments_stuffed (one)  -> the scan
     or, without device_stuff,
@@ -55,7 +54,6 @@ from jpegtpu_torch.config import EncoderConfig
 from jpegtpu_torch.container import jfif
 from jpegtpu_torch.core import ops, tables
 from jpegtpu_torch.entropy import huffman_tables as ht
-from jpegtpu_torch.entropy import scan
 from jpegtpu_torch.kernels import (compact, entropy_pack, fused_dctq,
                                    fused_pipeline)
 
@@ -210,10 +208,11 @@ def _segments(imgs: torch.Tensor, tables: EncoderTables, subsampling: str,
     n_seg segments of mps MCUs over the images' MCUs in order, as
     jpegtpu's programs dispatch (``encoder.py:181-211, 316-337``): the
     fused front end with fuse_bp (4:2:0, 4:2:2, 4:4:4), else the pixel
-    route of pixel_path, the DC differences (reset at every segment start;
-    from the DC plane when ``fused_dctq.PIXEL_DC`` is set and the route is
-    "nat", else from the coefficients) and the block pack; then zero-length
-    pad MCUs for a ragged last segment and the segment merge."""
+    route of pixel_path and the block pack, which derives each block's
+    class and DC difference (reset at every segment start; from the DC plane
+    when ``fused_dctq.PIXEL_DC`` is set and the route is "nat", else from
+    the coefficients); then the segment merge, which takes a ragged last
+    segment as it is."""
     if fuse_bp and subsampling in fused_pipeline.FUSED_MODES:
         padded = ops.pad_to_multiple(imgs, ops.mcu_shape(subsampling))
         mwords, mlens = fused_pipeline.fused_pixel_block_pack_pairs(
@@ -225,13 +224,8 @@ def _segments(imgs: torch.Tensor, tables: EncoderTables, subsampling: str,
         out = fused_dctq.encode_blocks_batch(imgs, tables, subsampling,
                                              pixel_path, with_dc)
         coeffs, dc = out if with_dc else (out, None)
-        n_mcu, b = coeffs.shape[0], coeffs.shape[1] // 64
-        dc_src = coeffs[:, ::64] if dc is None else dc[:, :b]
-        dcd = scan.dc_diffs_from_dc(dc_src, n_luma, restart).reshape(-1)
-        cls = entropy_pack.block_classes(n_mcu, b, n_luma, coeffs.device)
-        mwords, mlens = entropy_pack.block_pack_mcu_pairs(coeffs, cls, dcd,
-                                                          *tables.luts())
-    mwords, mlens = entropy_pack.pad_segments(mwords, mlens, n_seg, mps)
+        mwords, mlens = entropy_pack.block_pack_mcu_segments(
+            coeffs, n_luma, restart, tables.luts(), dc)
     return entropy_pack.seg_merge_mcu(mwords, mlens, n_seg, mps)
 
 

@@ -37,7 +37,8 @@ SOURCES = ("pixel_mma.cu", "block_pack.cu", "seg_merge.cu", "stuff.cu",
            "compact.cu", "fused_px_bp.cu", "pixel_dma.cu", "mcu_merge.cu",
            "seg_merge_window.cu", "seg_merge_v1.cu")
 # Headers the sources include; part of the library's hash.
-HEADERS = ("pixel_common.cuh", "block_pack.cuh", "merge_common.cuh")
+HEADERS = ("pixel_common.cuh", "block_pack.cuh", "merge_common.cuh",
+           "lookback.cuh", "grid.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # ctypes types of the launchers' arguments; every launcher takes the CUDA

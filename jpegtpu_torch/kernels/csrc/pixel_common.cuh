@@ -78,8 +78,6 @@ __device__ __forceinline__ int32_t round_half_away(double a) {
 // Each warp computes 32 x 32 output tiles of the two products (2 m16 x 4 n8
 // mma tiles, 32 float64 accumulators a thread).
 
-// Devices whose launch setup a launcher keeps (per-device tables).
-constexpr int kMaxDevices = 64;
 // Lanes of a DC-plane row (K12): lane k the DC of block k, the rest zero.
 constexpr int kDcLanes = 8;
 
@@ -324,32 +322,6 @@ __device__ __forceinline__ void tile_product(
                          F::kLuma * 64 + quarter * 32, n_mcu, lane);
     }
   }
-}
-
-// The blocks of `kernel` that fit on the current device at once, with its
-// dynamic shared memory opted in; set up once per device and kept in cap.
-template <typename Kernel>
-inline int device_grid(Kernel kernel, int smem_bytes, int threads,
-                       int (&cap)[kMaxDevices], int* grid) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (cap[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if ((e = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             smem_bytes)) != cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, threads, smem_bytes)) != cudaSuccess)
-      return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    cap[dev] = sms * per_sm;
-  }
-  *grid = cap[dev];
-  return 0;
 }
 
 }  // namespace jt

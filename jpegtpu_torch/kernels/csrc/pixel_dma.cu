@@ -27,6 +27,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid.cuh"
 #include "pixel_common.cuh"
 
 namespace {
@@ -172,10 +173,9 @@ extern "C" int jt_pixel_dma(const uint8_t* img, const float* lum,
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(img) & 15) || row_bytes % 16)
     return (int)cudaErrorMisalignedAddress;
-  static int cap[jt::kMaxDevices];    // grid per device, set up on first use
   int grid = 0;
   const int err =
-      jt::device_grid(pixel_dma_kernel, kSmemBytes, kThreads, cap, &grid);
+      jt::resident_blocks(pixel_dma_kernel, kThreads, kSmemBytes, &grid);
   if (err) return err;
   const long long n_tiles = (n_mcu + kTile - 1) / kTile;
   if (n_tiles < grid) grid = (int)n_tiles;

@@ -54,6 +54,7 @@
 
 #include <type_traits>
 
+#include "grid.cuh"
 #include "pixel_common.cuh"
 
 namespace {
@@ -159,10 +160,8 @@ int launch(const uint8_t* img, const float* lum, const float* chroma,
   if ((reinterpret_cast<uintptr_t>(img) | (uintptr_t)row_bytes) %
       S::kBytes)
     return (int)cudaErrorMisalignedAddress;
-  static int cap[jt::kMaxDevices];    // grid per device, set up on first use
   int grid = 0;
-  const int err = jt::device_grid(kernel, S::kSmemBytes, kThreads, cap,
-                                  &grid);
+  const int err = jt::resident_blocks(kernel, kThreads, S::kSmemBytes, &grid);
   if (err) return err;
   const long long n_tiles = (n_mcu + kTile - 1) / kTile;
   if (n_tiles < grid) grid = (int)n_tiles;

@@ -64,6 +64,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid.cuh"       // resident_blocks
+#include "lookback.cuh"   // publish, look_back
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -71,26 +74,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileWords = 4 * kThreads;        // 1024 words, 4 KB a tile
 constexpr int kTileBytes = 4 * kTileWords;
 constexpr long long kScratchHead = 16;          // = compact.STUFF_SCRATCH_HEAD
-constexpr int kMaxDevices = 64;
 constexpr int kMaxRun = 16;                     // tiles a ticket, at most
-constexpr unsigned long long kAggregate = 1ULL << 62;
-constexpr unsigned long long kInclusive = 2ULL << 62;
-constexpr unsigned long long kValue = kAggregate - 1;
+using jt::kAggregate;
+using jt::kInclusive;
+using jt::look_back;
+using jt::publish;
 // The stuffed tile (every byte 0xFF, plus a marker) at its 16-byte phase.
 constexpr int kBufBytes = (2 * kTileBytes + 2 + 15 + 15) / 16 * 16;
-
-__device__ __forceinline__ void publish(unsigned long long* p,
-                                        unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long observe(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p));
-  return v;
-}
 
 // Segment s's byte count, at most the cap bytes of its row.
 __device__ __forceinline__ long long seg_nbytes(const int32_t* bits,
@@ -101,30 +91,6 @@ __device__ __forceinline__ long long seg_nbytes(const int32_t* bits,
 // Tiles of a segment in the chain: those holding data, at least tile 0.
 __device__ __forceinline__ long long data_tiles(long long nb) {
   return max(1LL, (nb + kTileBytes - 1) / kTileBytes);
-}
-
-// The look-back of chain element r (warp 0): the sum of the aggregates of
-// the elements before it back to the nearest inclusive prefix, 32 a
-// round, lane k reading element i - k; before element 0 the prefix is 0.
-__device__ long long look_back(const unsigned long long* status, long long r,
-                               int lane) {
-  long long excl = 0;
-  for (long long i = r - 1;; i -= 32) {
-    unsigned long long st = kInclusive;
-    if (i - lane >= 0) {
-      do {
-        st = observe(&status[i - lane]);
-      } while ((st >> 62) == 0);
-    }
-    const unsigned incl = __ballot_sync(0xffffffffu, (st >> 62) == 2);
-    const int stop = incl ? __ffs(incl) - 1 : 31;
-    long long v = lane <= stop ? (long long)(st & kValue) : 0;
-#pragma unroll
-    for (int d = 16; d; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
-    excl += v;
-    if (incl) break;
-  }
-  return excl;
 }
 
 // My 16 bytes of chunk c of segment s (never a word past the data), and
@@ -358,21 +324,11 @@ int launch(const int32_t* seg_words, const int32_t* seg_bits,
       scratch, 0, (size_t)(kScratchHead + n_tiles) * sizeof(long long),
       stream);
   if (err != cudaSuccess) return (int)err;
-  static int resident[kMaxDevices];    // set up on first use per device
-  int dev = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, stuff_lookback_kernel, kThreads, 0)) != cudaSuccess)
-      return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident[dev] = sms * per_sm;
-  }
-  const long long grid = n_tiles < resident[dev] ? n_tiles : resident[dev];
+  int resident = 0;
+  const int e = jt::resident_blocks(stuff_lookback_kernel, kThreads, 0,
+                                    &resident);
+  if (e) return e;
+  const long long grid = n_tiles < resident ? n_tiles : resident;
   stuff_lookback_kernel<<<(unsigned)grid, kThreads, 0, stream>>>(
       reinterpret_cast<const uint32_t*>(seg_words), seg_bits, mnum,
       out, reinterpret_cast<long long*>(bounds), scratch, n_seg, seg_stride,

@@ -117,10 +117,7 @@ def _append(kernel: _build.Kernel, plain, rows: torch.Tensor,
     if per_seg * 32 * rows.shape[1] >= 1 << 31:
         # The kernel counts a segment's bits in int32: read the sums back
         # (a device sync) only where rows this long could reach 2^31.
-        most = int(lens.view(n_seg, per_seg).sum(1, dtype=torch.int64).max())
-        if most >= 1 << 31:
-            raise ValueError(f"a segment holds {most} bits; a segment must "
-                             f"hold fewer than 2^31")
+        entropy_pack.segment_bits(lens, n_seg)
     out = torch.zeros((n_seg, width), dtype=torch.int32, device=rows.device)
     seg_bits = torch.empty((n_seg,), dtype=torch.int32, device=rows.device)
     kernel.launch(rows.device, rows.data_ptr(), lens.data_ptr(),

@@ -2,13 +2,19 @@
 streams into restart segments (counterpart of
 ``jpegtpu.kernels.entropy_pack``).
 
-``block_pack_mcu_pairs`` launches ``csrc/block_pack.cu`` (the port of
-``_block_pack_mcu_kernel``) and ``seg_merge_mcu`` launches
-``csrc/seg_merge.cu`` (the port of ``_seg_merge_v3_kernel``) on CUDA
-tensors. On CPU tensors each runs its plain twin (``*_plain``), built from
-the oracle formulation in ``jpegtpu_torch.entropy``. ``pad_segments`` fills
-a ragged last segment with zero-length MCUs, so that every segment holds
-the same number of MCUs.
+``csrc/block_pack.cu`` holds the port of ``_block_pack_mcu_kernel`` (K2),
+one kernel body with two launchers: ``block_pack_mcu_pairs`` takes each
+block's class and DC difference (jpegtpu's signature; the oracle tier and
+the parity checks call it), ``block_pack_mcu_segments`` derives both in the
+kernel from the MCU layout, the restart interval and the DC values (the
+encoder calls it, so no glue runs before it). ``seg_merge_mcu`` launches
+``csrc/seg_merge.cu`` (the port of ``_seg_merge_v3_kernel``, K3), which
+scans the MCU lengths itself and takes a ragged last segment as it is.
+On CPU tensors each runs its plain twin (``*_plain``), built from the oracle
+formulation in ``jpegtpu_torch.entropy``: ``scan.dc_diffs_from_dc`` and
+``block_classes`` for the derived inputs, ``pad_segments`` (zero-length MCUs
+that fill a ragged last segment) before the merge. The CUDA path runs none
+of them.
 
 The oracle tier that jpegtpu's tests climb starts here too: ``block_pack``
 packs one stream per block (``csrc/block_pack.cu`` ``jt_block_pack``, the
@@ -20,13 +26,16 @@ re-exported from ``entropy_oracles``, as jpegtpu re-exports them.
 Streams are u32 big-endian words stored as int32 bit patterns. Buffers are
 sized for the worst case: an MCU of g blocks holds g*52+2 words, a segment
 of mps MCUs mps*g*52+2 words (a single segment rounded up to whole 4 KB
-chunks), so no input can overflow them.
+chunks), so no input can overflow them. On the card K2 writes an MCU's
+first ceil(mlen / 32) words and K3 a segment's first ceil(seg_bits / 32):
+the bits past mlens and the bytes past ceil(seg_bits / 8) are undefined
+there, and every consumer reads no further. The twins zero them.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -44,15 +53,32 @@ PACK_BLOCKS = _build.Kernel("jt_block_pack", [
     _build.PTR, _build.PTR,                           # words, lens
     _build.I64])                                      # n_blocks
 
+# K2's two launchers (one kernel body).
 BLOCK_PACK = _build.Kernel("jt_block_pack_mcu", [
     _build.PTR, _build.PTR, _build.PTR,               # coeffs, cls, dcdiff
     _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # dc/ac codes + lens
     _build.PTR, _build.PTR,                           # mwords, mlens
     _build.I64, _build.I32, _build.I32])              # n_mcu, g, mcu_words
+BLOCK_PACK_SEGMENTS = _build.Kernel("jt_block_pack_mcu_segments", [
+    _build.PTR, _build.PTR, _build.I64, _build.I64,   # coeffs, dc + strides
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # dc/ac codes + lens
+    _build.PTR, _build.PTR,                           # mwords, mlens
+    _build.I64, _build.I32, _build.I32, _build.I64,   # n_mcu, g, n_luma,
+    _build.I32])                                      # restart, mcu_words
+# The most blocks an MCU may have in K2 (csrc/block_pack.cu's kMaxG).
+BLOCK_PACK_MAX_G = 48
 
 SEG_MERGE = _build.Kernel("jt_seg_merge_mcu", [
-    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # mwords, mlens, off, out
-    _build.I64, _build.I64, _build.I32, _build.I64])  # n_mcu, mps, mcu_w, seg_w
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # mwords, mlens, out,
+    _build.PTR,                                       # seg_bits, scratch
+    _build.I64, _build.I64, _build.I64, _build.I32,   # nm, n_seg, mps, mcu_w
+    _build.I64])                                      # seg_w
+# csrc/seg_merge.cu's tiles: a segment of more than SEG_MERGE_WHOLE MCUs is
+# cut into tiles of SEG_MERGE_TILE, which need a scratch of
+# SEG_MERGE_SCRATCH_HEAD int64 words (the ticket counter) and one a tile.
+SEG_MERGE_WHOLE = 512
+SEG_MERGE_TILE = 256
+SEG_MERGE_SCRATCH_HEAD = 16
 
 
 def mcu_words(g: int) -> int:
@@ -166,7 +192,8 @@ def block_pack_mcu_pairs(c2: torch.Tensor, cls: torch.Tensor,
     """Coefficients [nM, g*64] int32 (block-major columns), class [nM*g]
     (0 luma, 1 chroma) and DC differences [nM*g], plus the packed Huffman
     LUTs dc_* [2,16] / ac_* [2,256] -> (MCU streams [nM, g*52+2] int32,
-    bit lengths [nM] int32). Each MCU stream is zero past its length."""
+    bit lengths [nM] int32). On the card the bits past each length are
+    undefined (the twin's are zero)."""
     if c2.device.type == "cpu":
         return block_pack_mcu_pairs_plain(c2, cls, dcdiff, dc_codes,
                                           dc_lens, ac_codes, ac_lens)
@@ -176,14 +203,80 @@ def block_pack_mcu_pairs(c2: torch.Tensor, cls: torch.Tensor,
             for t in (c2, cls, dcdiff, dc_codes, dc_lens, ac_codes, ac_lens)]
     _build.check_cuda(*args)
     if (gx64 % 64 or args[1].numel() != nm * g or args[2].numel() != nm * g
-            or args[3].shape != (2, 16) or args[4].shape != (2, 16)
-            or args[5].shape != (2, 256) or args[6].shape != (2, 256)):
+            or not _luts_ok(args[3:])):
         raise ValueError("block_pack_mcu_pairs: bad input shapes")
-    mw = mcu_words(g)
-    mwords = torch.empty((nm, mw), dtype=torch.int32, device=c2.device)
-    mlens = torch.empty((nm,), dtype=torch.int32, device=c2.device)
+    mwords, mlens = _mcu_outputs(nm, g, c2.device)
     BLOCK_PACK.launch(c2.device, *(a.data_ptr() for a in args),
-                      mwords.data_ptr(), mlens.data_ptr(), nm, g, mw)
+                      mwords.data_ptr(), mlens.data_ptr(), nm, g,
+                      mwords.shape[1])
+    return mwords, mlens
+
+
+def _luts_ok(luts) -> bool:
+    return [tuple(t.shape) for t in luts] == [(2, 16), (2, 16), (2, 256),
+                                              (2, 256)]
+
+
+def _mcu_outputs(nm: int, g: int, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's outputs, uninitialised: streams [nM, g*52+2], lengths [nM]. A g
+    past the kernel's limit raises ValueError."""
+    if not 1 <= g <= BLOCK_PACK_MAX_G:
+        raise ValueError(f"the block pack takes 1-{BLOCK_PACK_MAX_G} blocks "
+                         f"an MCU, got {g}")
+    return (torch.empty((nm, mcu_words(g)), dtype=torch.int32, device=device),
+            torch.empty((nm,), dtype=torch.int32, device=device))
+
+
+def block_pack_mcu_segments_plain(coeffs: torch.Tensor, n_luma: int,
+                                  restart: int, luts: Sequence[torch.Tensor],
+                                  dc: torch.Tensor | None = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the encoder's block-pack launcher: the class vector
+    (``block_classes``) and the DC differences (``scan.dc_diffs_from_dc``
+    of dc's first g lanes, or of the coefficients' slot 0), then
+    ``block_pack_mcu_pairs_plain``."""
+    nm, g = coeffs.shape[0], coeffs.shape[1] // 64
+    dc_src = coeffs[:, ::64] if dc is None else dc[:, :g]
+    dcd = scan.dc_diffs_from_dc(dc_src, n_luma, restart).reshape(-1)
+    cls = block_classes(nm, g, n_luma, coeffs.device)
+    return block_pack_mcu_pairs_plain(coeffs, cls, dcd, *luts)
+
+
+def block_pack_mcu_segments(coeffs: torch.Tensor, n_luma: int, restart: int,
+                            luts: Sequence[torch.Tensor],
+                            dc: torch.Tensor | None = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coefficients [nM, g*64] int32 (block-major columns) of MCUs whose
+    first n_luma blocks are luma, and the packed Huffman LUTs -> (MCU
+    streams [nM, g*52+2] int32, bit lengths [nM] int32), as
+    ``block_pack_mcu_pairs`` with the class of each block from its place in
+    the MCU and the DC differences of ``scan.dc_diffs_from_dc``: each block
+    less the previous block of its component in scan order, the predictor
+    reset to 0 where the MCU index is a multiple of restart (restart > 0)
+    or at MCU 0 alone (restart 0). The DC values come from dc [nM, >= g]
+    (the pixel kernel's DC plane) where given, else from each block's slot
+    0. On the card one launch derives both (``jt_block_pack_mcu_segments``)
+    and the bits past each length are undefined; on the CPU the twin."""
+    if coeffs.device.type == "cpu":
+        return block_pack_mcu_segments_plain(coeffs, n_luma, restart, luts,
+                                             dc)
+    nm, gx64 = coeffs.shape
+    g = gx64 // 64
+    coeffs = coeffs.to(torch.int32).contiguous()
+    src = coeffs if dc is None else dc.to(torch.int32).contiguous()
+    luts = [t.to(torch.int32).contiguous() for t in luts]
+    _build.check_cuda(coeffs, src, *luts)
+    if (gx64 % 64 or not _luts_ok(luts) or not 1 <= n_luma <= g
+            or restart < 0 or (dc is not None and (
+                src.dim() != 2 or src.shape[0] != nm or src.shape[1] < g))):
+        raise ValueError("block_pack_mcu_segments: bad input shapes")
+    strides = (gx64, 64) if dc is None else (src.shape[1], 1)
+    mwords, mlens = _mcu_outputs(nm, g, coeffs.device)
+    BLOCK_PACK_SEGMENTS.launch(
+        coeffs.device, coeffs.data_ptr(), src.data_ptr(), *strides,
+        *(t.data_ptr() for t in luts), mwords.data_ptr(), mlens.data_ptr(),
+        nm, g, n_luma, restart, mwords.shape[1])
     return mwords, mlens
 
 
@@ -192,40 +285,21 @@ def pad_segments(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
     """Append n_seg*mps - nM zero-length MCUs, so that a ragged last
     segment holds mps MCUs like the others (``jpegtpu/encoder.py:266-275``).
     A pad MCU adds no bits, so the segment's bytes do not change."""
-    pad = n_seg * mps - mwords.shape[0]
-    if pad < 0 or pad >= mps:
-        raise ValueError(f"{mwords.shape[0]} MCUs do not fill the last of "
-                         f"{n_seg} segments of {mps}")
+    pad = _pad_count(mwords.shape[0], n_seg, mps)
     if pad == 0:
         return mwords, mlens
     return (torch.cat([mwords, mwords.new_zeros((pad, mwords.shape[1]))]),
             torch.cat([mlens, mlens.new_zeros(pad)]))
 
 
-def segment_offsets(mlens: torch.Tensor, n_seg: int, mps: int,
-                    mcu_bits_cap: int | None = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each MCU's exclusive bit offset within its segment ([nM] int32) and
-    each segment's bit count ([n_seg] int32): the glue before the merge.
-
-    The sums are int64. A segment of 2^31 bits or more raises ValueError
-    instead of wrapping. On a CUDA tensor the check reads the sums back (a
-    device sync) only when mps MCUs of mcu_bits_cap bits (an MCU stream's
-    capacity) could reach 2^31."""
-    ml = mlens.reshape(-1).to(torch.int64)
-    # One flat scan over all MCUs, less each segment's base: a scan along
-    # many short rows (small intervals) is slow on the card.
-    incl = torch.cumsum(ml, dim=0).reshape(n_seg, mps)
-    excl = incl - ml.reshape(n_seg, mps)
-    base = excl[:, :1]
-    seg_bits = incl[:, -1] - base[:, 0]
-    if (mlens.device.type == "cpu" or mcu_bits_cap is None
-            or mps * mcu_bits_cap >= 1 << 31):
-        most = int(seg_bits.max())
-        if most >= 1 << 31:
-            raise ValueError(f"a segment holds {most} bits; a segment "
-                             f"must hold fewer than 2^31")
-    return (excl - base).reshape(-1).to(torch.int32), seg_bits.to(torch.int32)
+def _pad_count(nm: int, n_seg: int, mps: int) -> int:
+    """The zero-length MCUs that fill nM MCUs to n_seg segments of mps;
+    ValueError unless that is fewer than mps (a ragged last segment)."""
+    pad = n_seg * mps - nm
+    if pad < 0 or pad >= max(mps, 1):
+        raise ValueError(f"{nm} MCUs do not fill the last of {n_seg} "
+                         f"segments of {mps}")
+    return pad
 
 
 def join_streams_plain(words: torch.Tensor, lens: torch.Tensor,
@@ -245,15 +319,28 @@ def join_streams_plain(words: torch.Tensor, lens: torch.Tensor,
     return assemble.pack_words(sym, bits, n_out, width)
 
 
+def segment_bits(lens: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Bit lengths of streams [n] -> each of n_seg segments' bit count
+    ([n_seg] int64), a segment joining n/n_seg consecutive streams: the
+    merges' 2^31-bit guard. A segment of 2^31 bits or more raises
+    ValueError (on a CUDA tensor, a device sync)."""
+    seg_bits = lens.reshape(n_seg, lens.numel() // max(n_seg, 1)).sum(
+        1, dtype=torch.int64)
+    most = int(seg_bits.max()) if n_seg else 0
+    if most >= 1 << 31:
+        raise ValueError(f"a segment holds {most} bits; a segment must "
+                         f"hold fewer than 2^31")
+    return seg_bits
+
+
 def merge_segments_plain(words: torch.Tensor, lens: torch.Tensor,
                          n_seg: int, width: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``join_streams_plain`` into n_seg segments of `width` words, each
     segment's last byte 1-padded -> (int32 words, int32 seg_bits). A segment
-    of 2^31 bits or more raises ValueError."""
+    of 2^31 bits or more raises ValueError (``segment_bits``)."""
+    segment_bits(lens, n_seg)
     seg, seg_bits = join_streams_plain(words, lens, n_seg, width)
-    if int(seg_bits.max()) >= 1 << 31:
-        raise ValueError("a segment must hold fewer than 2^31 bits")
     assemble.pad_ones(seg, seg_bits)
     return assemble.to_i32_bits(seg), seg_bits.to(torch.int32)
 
@@ -261,10 +348,20 @@ def merge_segments_plain(words: torch.Tensor, lens: torch.Tensor,
 def seg_merge_mcu_plain(mwords: torch.Tensor, mlens: torch.Tensor,
                         n_seg: int, mps: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of the segment-merge kernel: ``merge_segments_plain``
-    into segments of ``segment_words`` words."""
+    """Plain twin of the segment-merge kernel: ``pad_segments``, then
+    ``merge_segments_plain`` into segments of ``segment_words`` words."""
+    mwords, mlens = pad_segments(mwords, mlens.reshape(-1), n_seg, mps)
     return merge_segments_plain(
         mwords, mlens, n_seg, segment_words(n_seg, mps, mwords.shape[1]))
+
+
+def seg_merge_scratch_words(n_seg: int, mps: int) -> int:
+    """int64 words of the segment-merge kernel's scratch: none where a
+    segment fits a tile, else the ticket counter and its padding, then a
+    status word a tile."""
+    if mps <= SEG_MERGE_WHOLE:
+        return 0
+    return SEG_MERGE_SCRATCH_HEAD + n_seg * -(-mps // SEG_MERGE_TILE)
 
 
 def seg_merge_mcu(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
@@ -272,21 +369,37 @@ def seg_merge_mcu(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
     """MCU streams [nM, W] int32 (+ bit lengths [nM]) -> (segment streams
     [n_seg, segment_words(n_seg, mps, W)] int32, seg_bits [n_seg] int32):
     segment s joins MCUs s*mps .. s*mps+mps-1 bit-contiguously and 1-pads
-    its last byte. Stream bits past an MCU's length are ignored."""
+    its last byte. nM may fall short of n_seg*mps by less than mps (a ragged
+    last segment: the missing MCUs have no bits). Stream bits past an MCU's
+    length are ignored. On the card one launch, no glue: its words past
+    ceil(seg_bits / 32) are never written (undefined), and a segment of
+    2^31 bits or more raises ValueError (a device sync, only where mps MCUs
+    of W words could reach it)."""
     if mwords.device.type == "cpu":
         return seg_merge_mcu_plain(mwords, mlens, n_seg, mps)
     nm, mw = mwords.shape
-    if nm != n_seg * mps or mlens.shape != (nm,):
-        raise ValueError(f"seg_merge_mcu: {nm} MCUs is not {n_seg} "
-                         f"segments of {mps}")
+    if mlens.shape != (nm,):
+        raise ValueError(f"seg_merge_mcu: mlens {tuple(mlens.shape)} for "
+                         f"{nm} MCUs")
+    _pad_count(nm, n_seg, mps)
     mwords = mwords.to(torch.int32).contiguous()
     mlens = mlens.to(torch.int32).contiguous()
-    off, seg_bits = segment_offsets(mlens, n_seg, mps, 32 * mw)
-    _build.check_cuda(mwords, mlens, off)
+    _build.check_cuda(mwords, mlens)
+    dev = mwords.device
     seg_w = segment_words(n_seg, mps, mw)
-    out = torch.zeros((n_seg, seg_w), dtype=torch.int32, device=mwords.device)
-    SEG_MERGE.launch(mwords.device, mwords.data_ptr(), mlens.data_ptr(),
-                     off.data_ptr(), out.data_ptr(), nm, mps, mw, seg_w)
+    out = torch.empty((n_seg, seg_w), dtype=torch.int32, device=dev)
+    seg_bits = torch.empty((n_seg,), dtype=torch.int32, device=dev)
+    if n_seg == 0:
+        return out, seg_bits
+    n_scratch = seg_merge_scratch_words(n_seg, mps)
+    scratch = (torch.empty(n_scratch, dtype=torch.int64, device=dev)
+               if n_scratch else None)
+    SEG_MERGE.launch(dev, mwords.data_ptr(), mlens.data_ptr(),
+                     out.data_ptr(), seg_bits.data_ptr(),
+                     scratch.data_ptr() if n_scratch else None, nm, n_seg,
+                     mps, mw, seg_w)
+    if mps * 32 * mw >= 1 << 31 and bool((seg_bits < 0).any()):
+        raise ValueError("a segment must hold fewer than 2^31 bits")
     return out, seg_bits
 
 

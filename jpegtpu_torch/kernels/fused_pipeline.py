@@ -5,13 +5,14 @@ coefficient tensor never reaches device memory (counterpart of
 ``fused_pixel_block_pack_pairs`` launches ``csrc/fused_px_bp.cu`` (the port
 of ``_fused_px_bp_kernel``) on a CUDA tensor: the dense pixel product of
 ``csrc/pixel_common.cuh``, the DC differences with their restart resets,
-and the block pack of ``csrc/block_pack.cu``, per MCU. On a CPU tensor it runs the
-plain twin ``fused_pixel_block_pack_pairs_plain``, which composes the three
-stages' twins. Either way the output is word for word that of the split
-stages, zeros past each stream's length included. It covers 4:2:0, 4:2:2
-and 4:4:4 at every width (jpegtpu's kernel refuses widths whose MCU count
-is not a multiple of its lane group, a rule of the TPU's layout); 4:4:4s
-and gray take the split stages, as in jpegtpu's encoder.
+and the per-block pack of ``csrc/block_pack.cuh``, per MCU. On a CPU tensor
+it runs the plain twin ``fused_pixel_block_pack_pairs_plain``, which
+composes the split stages' twins. Either way the output is word for word
+that of the split stages' twins, zeros past each stream's length included
+(the split block pack on the card leaves those bits undefined). It covers
+4:2:0, 4:2:2 and 4:4:4 at every width (jpegtpu's kernel refuses widths
+whose MCU count is not a multiple of its lane group, a rule of the TPU's
+layout); 4:4:4s and gray take the split stages, as in jpegtpu's encoder.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ from typing import Tuple
 import torch
 
 from jpegtpu_torch.core import ops
-from jpegtpu_torch.entropy import scan
 from jpegtpu_torch.kernels import _build, entropy_pack, fused_dctq
 
 FUSED_PX_BP = _build.Kernel("jt_fused_px_bp", [
@@ -54,12 +54,8 @@ def fused_pixel_block_pack_pairs_plain(img: torch.Tensor, tables,
     _checked(img, tables, subsampling)
     coeffs = fused_dctq.encode_blocks_pairs_plain(img, tables.m, tables.bias,
                                                   subsampling)
-    n_mcu, g = coeffs.shape[0], coeffs.shape[1] // 64
-    n_luma = g - 2
-    dcd = scan.dc_diffs_from_dc(coeffs[:, ::64], n_luma, restart).reshape(-1)
-    cls = entropy_pack.block_classes(n_mcu, g, n_luma, coeffs.device)
-    return entropy_pack.block_pack_mcu_pairs_plain(coeffs, cls, dcd,
-                                                   *tables.luts())
+    return entropy_pack.block_pack_mcu_segments_plain(
+        coeffs, coeffs.shape[1] // 64 - 2, restart, tables.luts())
 
 
 def fused_pixel_block_pack_pairs(img: torch.Tensor, tables, subsampling: str,
@@ -67,11 +63,10 @@ def fused_pixel_block_pack_pairs(img: torch.Tensor, tables, subsampling: str,
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """u8 RGB [H, W, 3] (a batch padded to whole MCUs per image and viewed
     as one tall image) -> (MCU streams [nM, g*52+2] int32, bit lengths [nM]
-    int32): ``entropy_pack.block_pack_mcu_pairs`` of
-    ``fused_dctq.encode_blocks_pairs(img)``, its class vector and
-    ``scan.dc_diffs_from_dc(coeffs[:, ::64], n_luma, restart)``, in one
-    launch of ``csrc/fused_px_bp.cu`` on a CUDA tensor (the plain twin on a
-    CPU tensor). ``tables`` is an ``EncoderTables`` of this mode; the DC
+    int32): ``entropy_pack.block_pack_mcu_segments`` of
+    ``fused_dctq.encode_blocks_pairs(img)``, in one launch of
+    ``csrc/fused_px_bp.cu`` on a CUDA tensor (the plain twin on a CPU
+    tensor). ``tables`` is an ``EncoderTables`` of this mode; the DC
     predictor resets where the MCU index is a multiple of ``restart``
     (restart > 0), or at MCU 0 alone (restart 0)."""
     mh, mw = _checked(img, tables, subsampling)

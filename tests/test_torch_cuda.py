@@ -24,8 +24,10 @@ from test_torch_stuff import CHUNK_CASES, chunk_case
 
 pytestmark = pytest.mark.gpu
 
-KERNELS = (fused_dctq.PIXEL, entropy_pack.BLOCK_PACK, entropy_pack.SEG_MERGE,
-           compact.STUFF, compact.STUFF_CHUNKS, compact.COMPACT)
+# The kernels of an encode path; K2 by the encoder's launcher.
+KERNELS = (fused_dctq.PIXEL, entropy_pack.BLOCK_PACK_SEGMENTS,
+           entropy_pack.SEG_MERGE, compact.STUFF, compact.STUFF_CHUNKS,
+           compact.COMPACT)
 MODES = ("420", "422", "444", "444s", "gray")
 
 
@@ -158,11 +160,21 @@ def _coeffs(kind, n_mcu, seed):
 
 
 def _masked(words, mlens):
-    """MCU words as u32 in int64, with the bits past each length cleared."""
+    """MCU words as u32 in int64, with the bits past each length cleared
+    (the card leaves them undefined)."""
     j = torch.arange(words.shape[1], device=words.device)[None, :]
     valid = torch.clamp(mlens.to(torch.int64)[:, None] - 32 * j, 0, 32)
     return (words.to(torch.int64) & 0xFFFFFFFF) & \
         ((0xFFFFFFFF << (32 - valid)) & 0xFFFFFFFF)
+
+
+def _same_segments(sw, sb, sw_p, sb_p):
+    """K3's segments equal the twin's: seg_bits, and each segment's words
+    through its 1-padded last byte (zero after it, as the twin's); the
+    words past them are undefined on the card."""
+    return torch.equal(sb, sb_p) and torch.equal(
+        _masked(sw, (sb.to(torch.int64) + 31) // 32 * 32),
+        _masked(sw_p, (sb_p.to(torch.int64) + 31) // 32 * 32))
 
 
 @pytest.mark.parametrize("kind", ["dense", "sparse"])
@@ -179,13 +191,13 @@ def test_entropy_kernels_match_twins(dev, kind, n_seg, mps):
     mw, ml = entropy_pack.block_pack_mcu_pairs(c, cls, dcd, *luts)
     mw_p, ml_p = entropy_pack.block_pack_mcu_pairs_plain(c, cls, dcd, *luts)
     assert torch.equal(ml, ml_p)
+    # The stream bits only: the card leaves the bits past each length
+    # undefined.
     assert torch.equal(_masked(mw, ml), _masked(mw_p, ml_p))
-    # The kernel's streams are zero past their length, as the twin's are.
-    assert torch.equal(mw, mw_p)
 
     sw, sb = entropy_pack.seg_merge_mcu(mw, ml, n_seg, mps)
     sw_p, sb_p = entropy_pack.seg_merge_mcu_plain(mw, ml, n_seg, mps)
-    assert torch.equal(sb, sb_p) and torch.equal(sw, sw_p)
+    assert _same_segments(sw, sb, sw_p, sb_p)
 
     for restart in (mps, 0):
         for fn in (compact.compact_segments_stuffed_grouped,
@@ -587,19 +599,19 @@ def test_factored_launchers_refuse_what_they_do_not_take(dev):
 
 @pytest.mark.parametrize("kind", ["dense", "sparse"])
 def test_seg_merge_pads_ragged_last_segment(dev, kind):
-    """Seven MCUs in segments of three: the last segment ends in two
-    zero-length pad MCUs, and the kernel still 1-pads its last real byte."""
+    """Seven MCUs in segments of three: the last segment holds one MCU,
+    the kernel takes the seven as they are (its two missing MCUs are
+    zero-length pads inside the kernel), equals the twin on the padded
+    input, and still 1-pads the last real byte."""
     n_mcu, n_seg, mps = 7, 3, 3
     c = torch.from_numpy(_coeffs(kind, n_mcu, 7)).to(dev)
     luts = EncoderTables.for_quality(90, "420", dev).luts()
-    dcd = scan.dc_diffs_from_dc(c[:, ::64], 4, mps).reshape(-1)
-    cls = (torch.arange(n_mcu * 6, device=dev) % 6 >= 4).to(torch.int32)
-    mw, ml = entropy_pack.pad_segments(
-        *entropy_pack.block_pack_mcu_pairs(c, cls, dcd, *luts), n_seg, mps)
-    assert int(ml[-1]) == int(ml[-2]) == 0
+    mw, ml = entropy_pack.block_pack_mcu_segments(c, 4, mps, luts)
     sw, sb = entropy_pack.seg_merge_mcu(mw, ml, n_seg, mps)
-    sw_p, sb_p = entropy_pack.seg_merge_mcu_plain(mw, ml, n_seg, mps)
-    assert torch.equal(sb, sb_p) and torch.equal(sw, sw_p)
+    pw, pl = entropy_pack.pad_segments(mw, ml, n_seg, mps)
+    assert int(pl[-1]) == int(pl[-2]) == 0
+    sw_p, sb_p = entropy_pack.seg_merge_mcu_plain(pw, pl, n_seg, mps)
+    assert _same_segments(sw, sb, sw_p, sb_p)
     last = int(sb[-1])
     assert last % 8, "pick inputs whose last segment ends inside a byte"
     word = int(sw[-1, last // 32]) & 0xFFFFFFFF
@@ -622,15 +634,18 @@ def test_wrappers_raise_on_cpu_operands(dev):
     cls = torch.zeros(6, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="CUDA"):
         entropy_pack.block_pack_mcu_pairs(c, cls, cls, *t.luts())
+    with pytest.raises(ValueError, match="CUDA"):
+        entropy_pack.block_pack_mcu_segments(c, 4, 1, t.luts())
 
 
-# The kernels of the pixel-path selectors, by name, beside K1 and K2.
+# The kernels of the pixel-path selectors, by name, beside K1 and K2 (the
+# encoder's launcher).
 PATH_KERNELS = {"pixel": fused_dctq.PIXEL,
                 "pixel_dc": fused_dctq.PIXEL_DC_PLANE,
                 "pixel_i8": fused_dctq.PIXEL_I8,
                 "pixel_dma": fused_dctq.PIXEL_DMA,
                 "fused_px_bp": fused_pipeline.FUSED_PX_BP,
-                "block_pack": entropy_pack.BLOCK_PACK}
+                "block_pack": entropy_pack.BLOCK_PACK_SEGMENTS}
 
 
 def _path_launches(fn):
@@ -962,7 +977,9 @@ def test_oracle_rungs_equal_the_main_path(dev, mode, restart):
     assert launches == [1, 0, 0, 0, 0]
     mw8, ml8 = entropy_oracles.mcu_merge(bw, bl, g)
     assert torch.equal(ml8, ml)
-    assert torch.equal(mw8[:, :mw.shape[1]], mw)
+    # K2's stream bits (the card leaves the bits past each length
+    # undefined); K8's rows are zero past them.
+    assert torch.equal(_masked(mw8[:, :mw.shape[1]], ml), _masked(mw, ml))
     assert not bool(mw8[:, mw.shape[1]:].any())
     w_cap = entropy_pack.segment_words(n_seg, mps, mw.shape[1])
     rungs, launches = _oracle_launches(lambda: {
@@ -973,8 +990,7 @@ def test_oracle_rungs_equal_the_main_path(dev, mode, restart):
     assert launches == [0, 2, 1, 1, 1]
     n = int(-(-sb.max() // 32))
     for rung, (rw, rb) in rungs.items():
-        assert torch.equal(rb, sb), rung
-        assert torch.equal(rw[:, :n], sw[:, :n]), rung
+        assert _same_segments(rw[:, :n], rb, sw[:, :n], sb), rung
 
 
 def test_oracle_wrappers_raise_and_never_run_twins(dev, monkeypatch):
@@ -1002,3 +1018,208 @@ def test_oracle_wrappers_raise_and_never_run_twins(dev, monkeypatch):
     with pytest.raises(AttributeError, match="jt_no_such_launcher"):
         entropy_oracles.seg_merge_v2(words, lens, 2, 6, 1024, 6)
     assert k.launches == 0
+
+
+# --- K2's two launchers and K3, against their twins at small shapes and
+# edge cases, onto buffers filled with SENTINEL first: K2 writes each MCU's
+# first ceil(mlen / 32) words and K3 each segment's first ceil(seg_bits /
+# 32), nothing past them.
+
+SENTINEL = 0x7FFFFFFF
+
+
+def _sentinel_block_pack(c, n_luma, restart, luts, dc=None, pairs=None):
+    """K2 launched directly onto sentinel-filled outputs: by the encoder's
+    launcher, or with pairs = (cls, dcd) by jpegtpu's signature."""
+    nm, g = c.shape[0], c.shape[1] // 64
+    mw = torch.full((nm, entropy_pack.mcu_words(g)), SENTINEL,
+                    dtype=torch.int32, device=c.device)
+    ml = torch.full((nm,), SENTINEL, dtype=torch.int32, device=c.device)
+    ptrs = [t.data_ptr() for t in luts]
+    if pairs is None:
+        src = c if dc is None else dc
+        strides = (g * 64, 64) if dc is None else (dc.shape[1], 1)
+        entropy_pack.BLOCK_PACK_SEGMENTS.launch(
+            c.device, c.data_ptr(), src.data_ptr(), *strides, *ptrs,
+            mw.data_ptr(), ml.data_ptr(), nm, g, n_luma, restart,
+            mw.shape[1])
+    else:
+        entropy_pack.BLOCK_PACK.launch(
+            c.device, c.data_ptr(), pairs[0].data_ptr(), pairs[1].data_ptr(),
+            *ptrs, mw.data_ptr(), ml.data_ptr(), nm, g, mw.shape[1])
+    return mw, ml
+
+
+def _past(words, nbits):
+    """Words at or past ceil(nbits / 32) of each row that are not
+    SENTINEL (written where nothing may be)."""
+    j = torch.arange(words.shape[1], device=words.device)[None, :]
+    past = j >= (nbits.to(torch.int64)[:, None] + 31) // 32
+    return int((past & (words != SENTINEL)).sum())
+
+
+def _sentinel_merge(mw, ml, n_seg, mps):
+    """K3 launched directly onto sentinel-filled outputs."""
+    seg_w = entropy_pack.segment_words(n_seg, mps, mw.shape[1])
+    sw = torch.full((n_seg, seg_w), SENTINEL, dtype=torch.int32,
+                    device=mw.device)
+    sb = torch.full((n_seg,), SENTINEL, dtype=torch.int32, device=mw.device)
+    n_scratch = entropy_pack.seg_merge_scratch_words(n_seg, mps)
+    scratch = torch.empty(max(n_scratch, 1), dtype=torch.int64,
+                          device=mw.device)
+    entropy_pack.SEG_MERGE.launch(
+        mw.device, mw.data_ptr(), ml.data_ptr(), sw.data_ptr(),
+        sb.data_ptr(), scratch.data_ptr() if n_scratch else None,
+        mw.shape[0], n_seg, mps, mw.shape[1], seg_w)
+    return sw, sb
+
+
+@pytest.mark.parametrize("source", ["coefficients", "dc_plane"])
+@pytest.mark.parametrize("restart", [0, 1, 4, 7])
+@pytest.mark.parametrize("mode", ["420", "422", "444", "gray"])
+def test_block_pack_launchers_match_twins(dev, mode, restart, source):
+    """Both K2 launchers against the twin on one mode's coefficients (13
+    MCUs, g = 6 / 4 / 3 / 1), wrapped and onto sentinel buffers: the
+    lengths, the stream bits, and no word written past ceil(mlen / 32)."""
+    g, n_luma = {"420": (6, 4), "422": (4, 2), "444": (3, 1),
+                 "gray": (1, 1)}[mode]
+    rng = np.random.default_rng(restart * 10 + g)
+    c6 = _coeffs("sparse" if restart % 2 else "dense", 13, restart + g)
+    c = torch.from_numpy(np.ascontiguousarray(
+        c6.reshape(-1, 64)[:13 * g].reshape(13, g * 64))).to(dev)
+    luts = EncoderTables.for_quality(90, "420", dev).luts()
+    dc = None
+    if source == "dc_plane":
+        plane = rng.integers(-2000, 2000, (13, 8)).astype(np.int32)
+        plane[:, :g] = c[:, ::64].cpu().numpy()
+        dc = torch.from_numpy(plane).to(dev)
+    mw, ml = entropy_pack.block_pack_mcu_segments(c, n_luma, restart, luts,
+                                                  dc)
+    mw_p, ml_p = entropy_pack.block_pack_mcu_segments_plain(
+        c, n_luma, restart, luts, dc)
+    assert torch.equal(ml, ml_p)
+    assert torch.equal(_masked(mw, ml), _masked(mw_p, ml_p))
+    sw, sl = _sentinel_block_pack(c, n_luma, restart, luts, dc)
+    assert torch.equal(sl, ml_p) and _past(sw, ml_p) == 0
+    assert torch.equal(_masked(sw, sl), _masked(mw_p, ml_p))
+    dcd = scan.dc_diffs_from_dc(c[:, ::64] if dc is None else dc[:, :g],
+                                n_luma, restart).reshape(-1)
+    cls = entropy_pack.block_classes(13, g, n_luma, dev)
+    pw, pl = _sentinel_block_pack(c, n_luma, restart, luts, pairs=(cls, dcd))
+    assert torch.equal(pl, ml_p) and _past(pw, ml_p) == 0
+    assert torch.equal(_masked(pw, pl), _masked(mw_p, ml_p))
+
+
+def test_block_pack_refusals(dev):
+    """A g past the kernel's limit raises ValueError; coefficients that are
+    not 8-byte aligned are refused by the launcher (716), nothing
+    launched."""
+    luts = EncoderTables.for_quality(90, "420", dev).luts()
+    g = entropy_pack.BLOCK_PACK_MAX_G + 1
+    c = torch.zeros((2, g * 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="blocks an MCU"):
+        entropy_pack.block_pack_mcu_segments(c, 1, 0, luts)
+    flat = torch.zeros(1 + 2 * 384, dtype=torch.int32, device=dev)
+    odd = flat[1:].view(2, 384)
+    k = entropy_pack.BLOCK_PACK_SEGMENTS
+    k.launches = 0
+    mw = torch.empty((2, 314), dtype=torch.int32, device=dev)
+    ml = torch.empty((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error 716 "):
+        k.launch(dev, odd.data_ptr(), odd.data_ptr(), 384, 64,
+                 *(t.data_ptr() for t in luts), mw.data_ptr(), ml.data_ptr(),
+                 2, 6, 4, 0, 314)
+    assert k.launches == 0
+
+
+def _merge_case(name, dev):
+    """(MCU words, lengths, n_seg, mps) of a K3 edge case."""
+    if name == "one_mcu_one_segment":
+        w, l = _oracle_streams(1, 20, 1, dev)
+        return w, l, 1, 1
+    if name == "one_segment_of_2000_mcus":      # 8 tiles, a look-back chain
+        w, l = _oracle_streams(2000, 20, 2, dev)
+        return w, l, 1, 2000
+    if name == "three_segments_of_700_ragged":  # tiles cut in each segment
+        w, l = _oracle_streams(1900, 20, 3, dev)
+        return w, l, 3, 700
+    if name == "ragged_pads":                   # last segment 1 MCU of 5
+        w, l = _oracle_streams(11, 20, 4, dev)
+        return w, l, 3, 5
+    if name == "whole_word_mcus":               # every MCU 32k bits long
+        w, l = _oracle_streams(600, 20, 5, dev)
+        l = 32 * torch.randint(0, 21, l.shape, device=dev, dtype=l.dtype)
+        return w, l, 12, 50
+    if name == "one_mcu_segments":
+        w, l = _oracle_streams(3000, 20, 6, dev)
+        return w, l, 3000, 1
+    if name == "rows_of_240":
+        w, l = _oracle_streams(2400, 20, 7, dev)
+        return w, l, 10, 240
+    raise KeyError(name)
+
+
+MERGE_CASES = ["one_mcu_one_segment", "one_segment_of_2000_mcus",
+               "three_segments_of_700_ragged", "ragged_pads",
+               "whole_word_mcus", "one_mcu_segments", "rows_of_240"]
+
+
+@pytest.mark.parametrize("name", MERGE_CASES)
+def test_seg_merge_matches_twin(dev, name):
+    """K3 against its twin on the edge cases (random bits past every MCU's
+    length, which it must not read): wrapped, 20 times (the look-back's
+    schedule differs from launch to launch), and onto sentinel buffers, with
+    no word written past ceil(seg_bits / 32)."""
+    mw, ml, n_seg, mps = _merge_case(name, dev)
+    want_w, want_b = entropy_pack.seg_merge_mcu_plain(mw, ml, n_seg, mps)
+    for _ in range(20):
+        sw, sb = entropy_pack.seg_merge_mcu(mw, ml, n_seg, mps)
+        assert _same_segments(sw, sb, want_w, want_b)
+    sw, sb = _sentinel_merge(mw, ml, n_seg, mps)
+    assert _same_segments(sw, sb, want_w, want_b)
+    assert _past(sw, want_b) == 0
+
+
+def test_seg_merge_no_segments_launches_nothing(dev):
+    k = entropy_pack.SEG_MERGE
+    k.launches = 0
+    empty = torch.zeros((0, 314), dtype=torch.int32, device=dev)
+    sw, sb = entropy_pack.seg_merge_mcu(empty, empty[:, 0], 0, 240)
+    assert sw.shape == (0, entropy_pack.segment_words(0, 240, 314))
+    assert sb.shape == (0,) and k.launches == 0
+
+
+def test_seg_merge_raises_at_2_31_bits(dev):
+    """1,024 MCUs of 2^21 bits in one segment: 2^31 bits, which the kernel
+    flags and the wrapper raises on (the worst case can reach it); one MCU
+    fewer fits."""
+    n, row = 1024, 1 << 16
+    mw = torch.zeros((n, row), dtype=torch.int32, device=dev)
+    ml = torch.full((n,), 32 * row, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="2\\^31"):
+        entropy_pack.seg_merge_mcu(mw, ml, 1, n)
+    ml[0] = 0
+    _, sb = entropy_pack.seg_merge_mcu(mw, ml, 1, n)
+    assert int(sb[0]) == (1 << 31) - (1 << 21)
+
+
+def test_k3_output_feeds_the_stuffing_and_compaction(dev):
+    """K4, K5 and K6 on K3's segments with every word past each segment's
+    data left at SENTINEL (0x7FFFFFFF: 0xFF bytes) give the bytes of their
+    twins on the twin's zero-filled segments."""
+    mw, ml, n_seg, mps = _merge_case("rows_of_240", dev)
+    sw, sb = _sentinel_merge(mw, ml, n_seg, mps)
+    tw, tb = entropy_pack.seg_merge_mcu_plain(mw, ml, n_seg, mps)
+    for fn, plain in ((compact.compact_segments_stuffed_grouped,
+                       compact.compact_segments_stuffed_grouped_plain),
+                      (compact.compact_segments_stuffed,
+                       compact.compact_segments_stuffed_plain)):
+        buf, total = fn(sw, sb, mps)[:2]
+        want, want_total = plain(tw, tb, mps)[:2]
+        assert int(total) == int(want_total)
+        assert torch.equal(buf[:int(total)], want[:int(total)])
+    buf, nb = compact.compact_segments(sw, sb)
+    want, want_nb = compact.compact_segments_plain(tw, tb)
+    assert torch.equal(nb, want_nb)
+    n = int(want_nb.sum())
+    assert torch.equal(buf[:n], want[:n])

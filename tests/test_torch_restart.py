@@ -205,15 +205,22 @@ def test_segment_words_rounds_only_a_single_segment(n_seg, mps, want):
 
 
 def test_segment_offsets_raise_at_2_31_bits():
+    """The merges' 2^31-bit guard (``segment_bits``; the card's K3 flags
+    such a segment in the kernel): a segment of 2^31 - 1 bits passes, one of
+    2^31 raises, in the guard and in the twins of K3 and K9/K10, before any
+    word is joined (so one word a stream is enough here)."""
     ok = torch.tensor([(1 << 30), (1 << 30) - 1, 5, 7], dtype=torch.int32)
-    off, seg_bits = t_entropy_pack.segment_offsets(ok, 2, 2)
-    assert seg_bits.tolist() == [(1 << 31) - 1, 12]
-    assert off.tolist() == [0, 1 << 30, 0, 5]
+    assert t_entropy_pack.segment_bits(ok, 2).tolist() == [(1 << 31) - 1, 12]
+    assert t_entropy_pack.segment_bits(ok[:0], 0).tolist() == []
     bad = torch.tensor([1 << 30, 1 << 30, 5, 7], dtype=torch.int32)
-    with pytest.raises(ValueError, match="2\\^31"):
-        t_entropy_pack.segment_offsets(bad, 2, 2)
-    with pytest.raises(ValueError, match="2\\^31"):
-        t_entropy_pack.segment_offsets(bad, 1, 4, mcu_bits_cap=1 << 30)
+    words = torch.zeros((4, 1), dtype=torch.int32)
+    for raises in (lambda: t_entropy_pack.segment_bits(bad, 2),
+                   lambda: t_entropy_pack.segment_bits(bad, 1),
+                   lambda: t_entropy_pack.seg_merge_mcu_plain(words, bad, 2, 2),
+                   lambda: t_entropy_pack.merge_segments_plain(words, bad, 1,
+                                                               8)):
+        with pytest.raises(ValueError, match="2\\^31"):
+            raises()
 
 
 @pytest.mark.parametrize("restart", ["rows", 0, 1, 3, 7, 13, 40, 1000])
