@@ -82,6 +82,8 @@ BATCH = 8                  # images of GOLDEN_SHAPE in the batch paths
 # selectors).
 PROFILED = (("420", "rows", {}), ("420", 0, {}), ("420", 7, {}),
             ("420", 1, {}), ("444", 1, {}), ("420", "rows", {"fuse_bp": True}),
+            ("422", "rows", {"fuse_bp": True}),
+            ("444", "rows", {"fuse_bp": True}),
             ("420", "rows", {"pixel_path": "dma"}),
             ("420", "rows", {"pixel_dc": True}))
 TIMING_REPS = 20
@@ -347,13 +349,19 @@ def main() -> int:
     klib.jt_pixel_smem.argtypes = [ctypes.c_int] * 3
     klib.jt_pixel_smem.restype = klib.jt_pixel_dma_smem.restype = ctypes.c_int
     klib.jt_pixel_dma_smem.argtypes = []
-    # K1, K12 (four geometries each), K13 and K14: registers, spills and
-    # shared memory; pixel_mma_kernel's last two template arguments are
-    # kI8 (K13) and kDc (K12).
+    klib.jt_fused_px_bp_smem.argtypes = [ctypes.c_int] * 2
+    klib.jt_fused_px_bp_smem.restype = ctypes.c_int
+    # K1, K12 (four geometries each), K13, K14 and K11 (three geometries):
+    # registers, spills and shared memory; pixel_mma_kernel's last two
+    # template arguments are kI8 (K13) and kDc (K12), fused_px_bp_kernel's
+    # the MCU's height and width and the tile's MCUs.
     for kernel, props in ptxas_entries(build_log, ("pixel_mma_kernel",
-                                                   "pixel_dma_kernel")):
+                                                   "pixel_dma_kernel",
+                                                   "fused_px_bp_kernel")):
         dims = tuple(int(v) for v in re.findall(r"Li(\d+)E", kernel))
-        smem = (klib.jt_pixel_smem(*dims[:3]) if dims
+        smem = (klib.jt_fused_px_bp_smem(*dims[:2])
+                if kernel.startswith("fused_px_bp") else
+                klib.jt_pixel_smem(*dims[:3]) if dims
                 else klib.jt_pixel_dma_smem())
         print(f"[build] {kernel}: {props}; dynamic shared memory {smem} "
               f"bytes a block")
@@ -757,27 +765,60 @@ def main() -> int:
     del stuff_inputs, ffw, ffb
 
     # K11-K14, the kernels of the pixel-path selectors. K11 at 420 rows,
-    # restart 0 (every block takes its first DC predictor from its halo
-    # MCU) and 7 (resets inside thread blocks), 422 rows and 444 rows (odd
-    # g): lengths and stream bits as K2's, and the whole words (both are
-    # zero past each length).
-    fused_cases = {"420 rows": ("420", restart), "420 restart 0": ("420", 0),
-                   "420 restart 7": ("420", 7),
-                   "422 rows": ("422", ops.mcu_grid(h, w, "422")[1]),
-                   "444 rows": ("444", ops.mcu_grid(h, w, "444")[1])}
+    # restart 0 (each block's run of tiles takes its first DC predictor
+    # from the scalar dot products) and 7 (resets inside tiles), 422 rows
+    # and 444 rows (odd g), the 8 x 1080p batch padded to whole MCUs and
+    # viewed as one tall image (resets at every image start), and the
+    # factored product's qualities PIXEL_QUALITIES at 420, 422 and 444
+    # rows: the lengths and the stream bits against the twin's (the words
+    # past ceil(mlen / 32) are undefined on the card, as K2's), through the
+    # wrapper and through the launcher onto SENTINEL-filled outputs one MCU
+    # row too long, which must show no word written past ceil(mlen / 32)
+    # and no row past the image's MCUs.
+    xb_fused = ops.pad_to_multiple(xb, ops.mcu_shape("420"))
+    xb_fused = xb_fused.reshape(-1, *xb_fused.shape[2:])
+    fused_cases = {"420 rows": (x, "420", restart, QUALITY),
+                   "420 restart 0": (x, "420", 0, QUALITY),
+                   "420 restart 7": (x, "420", 7, QUALITY),
+                   f"batch {BATCH} x 1080p 420 rows":
+                   (xb_fused, "420", bmx, QUALITY)}
+    for q in PIXEL_QUALITIES:
+        for sub in fused_pipeline.FUSED_MODES:
+            if q != QUALITY or sub != "420":
+                fused_cases[f"{sub} rows q{q}"] = (
+                    x, sub, ops.mcu_grid(h, w, sub)[1], q)
     errs["fused_px_bp"] = 0
-    for label, (sub, r) in fused_cases.items():
-        fw, fl = fused_pipeline.fused_pixel_block_pack_pairs(x, tabs[sub],
-                                                             sub, r)
+    for label, (xf, sub, r, q) in fused_cases.items():
+        t = (tabs[sub] if q == QUALITY
+             else EncoderTables.for_quality(q, sub, dev))
+        fw, fl = fused_pipeline.fused_pixel_block_pack_pairs(xf, t, sub, r)
         fw_p, fl_p = fused_pipeline.fused_pixel_block_pack_pairs_plain(
-            x, tabs[sub], sub, r)
+            xf, t, sub, r)
         n_bad, e = stream_diff(fw, fl, fw_p, fl_p)
-        n_whole = int((fw != fw_p).sum())
-        errs["fused_px_bp"] = max(errs["fused_px_bp"], e)
+        mh, mwid = ops.mcu_shape(sub)
+        nm, nrx_ = fw.shape[0], xf.shape[1] // mwid
+        fw_s = torch.full((nm + nrx_, fw.shape[1]), SENTINEL,
+                          dtype=torch.int32, device=dev)
+        fl_s = torch.full((nm + nrx_,), SENTINEL, dtype=torch.int32,
+                          device=dev)
+        lum, chroma = fused_dctq.cuda_factors(t.m, t.bias, sub)
+        fused_pipeline.FUSED_PX_BP.launch(
+            dev, xf.data_ptr(), lum.data_ptr(), chroma.data_ptr(),
+            t.bias.data_ptr(), *(u.data_ptr() for u in t.luts()),
+            fw_s.data_ptr(), fl_s.data_ptr(), nm, nrx_, xf.shape[1] * 3, r,
+            mh, mwid, fw.shape[1])
+        n_s, e_s = stream_diff(fw_s[:nm], fl_s[:nm], fw_p, fl_p)
+        n_past = past(fw_s[:nm], fl_p)
+        n_rows = int((fw_s[nm:] != SENTINEL).sum() +
+                     (fl_s[nm:] != SENTINEL).sum())
+        errs["fused_px_bp"] = max(errs["fused_px_bp"], e, e_s)
         report(f"K11 fused pixel + block pack {label}: mlens "
-               f"{tuple(fl.shape)} + masked words {tuple(fw.shape)}; "
-               f"{n_whole} whole words differ", n_bad + n_whole, e)
-        del fw, fl, fw_p, fl_p
+               f"{tuple(fl.shape)} + stream bits {tuple(fw.shape)}, wrapped "
+               f"and onto SENTINEL rows; {n_past} words written past "
+               f"ceil(mlen / 32), {n_rows} values past the {nm} MCUs",
+               n_bad + n_s + n_past + n_rows, max(e, e_s))
+        del fw, fl, fw_p, fl_p, fw_s, fl_s
+    del xb_fused
     # K12 is held above, in every geometry; K13 also against its own twin,
     # which restores + 128 from the view.
     x8 = fused_dctq.i8_view(x)
@@ -1195,16 +1236,27 @@ def main() -> int:
         line(f"{label} plain twin", times[label][1])
     # The pixel kernels at 4:2:0 alone (profiler), by their template
     # arguments: K1, K12 (kDc, its DC plane), K13 (kI8, int8 input), K14,
-    # K11.
+    # K11 (MCU height and width, tile).
     pixel_keys = {
         "pixel": ("pixel_mma_kernel<16, 16, 64, 32, false, false>",),
         "pixel_dc": ("pixel_mma_kernel<16, 16, 64, 32, false, true>",),
         "pixel_i8": ("pixel_mma_kernel<16, 16, 64, 32, true, false>",),
         "pixel_dma": ("pixel_dma_kernel(",),
-        "fused_px_bp": ("fused_px_bp_kernel<16, 16, 384, 7>",)}
+        "fused_px_bp": ("fused_px_bp_kernel<16, 16, 32>",)}
     for n, keys in pixel_keys.items():
         print(f"[time] {n} kernel alone (profiler), 420 {w}x{h}: "
               f"{kernel_device_ms(pairs[n][0], *keys)} ms  [{card}]")
+    # K11 alone at 4:2:2 and 4:4:4 rows, twice each (profiler).
+    for sub, dims in (("422", "8, 16, 32"), ("444", "8, 8, 64")):
+        t = tabs[sub]
+        r = ops.mcu_grid(h, w, sub)[1]
+        k11 = lambda t=t, sub=sub, r=r: (  # noqa: E731
+            fused_pipeline.fused_pixel_block_pack_pairs(x, t, sub, r))
+        key = f"fused_px_bp_kernel<{dims}>"
+        ka = kernel_device_ms(k11, key, reps=20)
+        kb = kernel_device_ms(k11, key, reps=20)
+        print(f"[time] fused_px_bp kernel alone (profiler), {sub} rows "
+              f"{w}x{h}: {ka} / {kb} ms  [{card}]")
     # K2 (the encoder's launcher) and K3 alone (profiler) on the main path,
     # restart 0, 7, 420 restart 1 and 444 restart 1, each twice, in turns
     # K2, K3, K3, K2; K3's scratch memset (restart 0 only) beside it.
@@ -1607,12 +1659,12 @@ def main() -> int:
         bytes_moved[key] = (x.numel() + (t.m.numel() + t.bias.numel()) * 4
                             + nm * t.m.shape[1] * 4)
         flops[key] = 2.0 * nm * operator_fmas(t.m.cpu().numpy(), sub)
-    # K11: the image, the operator, the LUTs in, the valid MCU words and
-    # the lengths out, and K1's FLOPs (the halo MCU it recomputes is the
-    # kernel's own overhead, not work the function needs); K12 K1's bytes
+    # K11: the image, the operator's factors, the bias and the LUTs in, the
+    # valid MCU words and the lengths out, and K1's FLOPs; K12 K1's bytes
     # and the plane, K13 and K14 K1's.
     bytes_moved["fused_px_bp"] = (
-        x.numel() + (tables.m.numel() + tables.bias.numel()) * 4 +
+        x.numel() + (tables.lum.numel() + tables.chroma.numel() +
+                     tables.bias.numel()) * 4 +
         sum(t.numel() * 4 for t in luts) + (valid_mcu_words + n_mcu) * 4)
     bytes_moved["pixel_dc"] = bytes_moved["pixel"] + n_mcu * 8 * 4
     bytes_moved["pixel_i8"] = bytes_moved["pixel_dma"] = bytes_moved["pixel"]
@@ -1626,6 +1678,21 @@ def main() -> int:
                     "operations" if t_ops > t_bytes else "bytes")
         print(f"[bound] {n}: {by} bytes, {flops.get(n, 0.0):.0f} float64 "
               f"FLOPs -> {bound[n][0]:.6f} ms ({bound[n][1]})")
+    # K11 at 4:2:2 and 4:4:4 rows, counted as at 4:2:0.
+    for sub in ("422", "444"):
+        t = tabs[sub]
+        fl_ = fused_pipeline.fused_pixel_block_pack_pairs(
+            x, t, sub, ops.mcu_grid(h, w, sub)[1])[1].to(torch.int64)
+        by = (x.numel() + (t.lum.numel() + t.chroma.numel() +
+                           t.bias.numel()) * 4 + lut_bytes +
+              (int(((fl_ + 31) // 32).sum()) + fl_.numel()) * 4)
+        t_ops = flops[f"pixel {sub}"] / FP64_FLOP_PER_S * 1e3
+        t_bytes = by / HBM_BYTES_PER_S * 1e3
+        print(f"[bound] fused_px_bp {sub} rows: {by} bytes, "
+              f"{flops[f'pixel {sub}']:.0f} float64 FLOPs -> "
+              f"{max(t_ops, t_bytes):.6f} ms "
+              f"({'operations' if t_ops > t_bytes else 'bytes'})")
+        del fl_
     by = bytes_moved["block_pack"] + (cls.numel() + dcd.numel()) * 4
     print(f"[bound] block_pack through jpegtpu's signature (class and DC "
           f"difference read, not derived): {by} bytes -> "

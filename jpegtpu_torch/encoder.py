@@ -93,8 +93,11 @@ class EncoderTables(nn.Module):
     ``ac_lens`` [2, 256] int32 (index 0 luma, 1 chroma). The kernels and
     their plain twins read the same tensors. The factors are made from m
     and bias here, on the host, and nowhere else: a fused operator that
-    does not factor raises ValueError. Wherever the module moves, it
-    records them as the factors of ``m`` for the factored pixel kernels
+    does not factor raises ValueError. ``coefficient_bound`` (None for
+    gray) is the largest magnitude a coefficient of m with bias can take
+    (``fused_dctq.coefficient_bound``), which the fused kernel's int16 tile
+    needs under 32,768. Wherever the module moves, it records both as those
+    of ``m`` for the factored pixel kernels and the fused kernel
     (``fused_dctq.remember_factors``)."""
 
     def __init__(self, m: torch.Tensor, bias: torch.Tensor,
@@ -110,11 +113,13 @@ class EncoderTables(nn.Module):
             self.register_buffer(name, t.to(torch.int32))
         m_host = self.m.detach().cpu().numpy()
         self.subsampling = operator_mode(m_host)
-        lum = chroma = None
+        lum = chroma = self.coefficient_bound = None
         if self.subsampling is not None:
             lum, chroma = (torch.from_numpy(a).to(self.m.device) for a in
                            fused_dctq.factor_operator(
                                m_host, self.subsampling, self.bias))
+            self.coefficient_bound = fused_dctq.coefficient_bound(
+                m_host, self.bias)
         self.register_buffer("lum", lum)
         self.register_buffer("chroma", chroma)
         self._remember()
@@ -122,7 +127,8 @@ class EncoderTables(nn.Module):
     def _remember(self) -> None:
         if self.lum is not None:
             fused_dctq.remember_factors(self.m, self.bias, self.subsampling,
-                                        self.lum, self.chroma)
+                                        self.lum, self.chroma,
+                                        self.coefficient_bound)
 
     def _apply(self, fn, *args, **kwargs):
         out = super()._apply(fn, *args, **kwargs)

@@ -48,6 +48,8 @@
 //   shared-memory round trip cost more than the symbols it saved (PERF.md).
 // - The MCU is staged in a per-warp row of shared memory (zeroed once; a
 //   warp zeroes what it stored), then its valid words go out coalesced.
+// The MCU body (jt::pack_mcu, jt::store_mcu) is block_pack.cuh's, shared
+// with K11 (fused_px_bp.cu), which feeds it from a shared coefficient tile.
 //
 // K7: replaces jpegtpu/kernels/entropy_pack.py:_block_pack_kernel (called
 // from block_pack), the oracle tier's per-block pack. The TPU kernel packs
@@ -74,91 +76,6 @@ constexpr int kWarps = 4;            // K2: warps (MCUs in flight) a block
 constexpr int kThreads = kWarps * 32;
 constexpr int kPer = 6;              // K2: blocks an MCU's warp loads at once
 constexpr int kMaxG = 48;            // = entropy_pack.BLOCK_PACK_MAX_G
-// The packed LUTs: (code << 8) | length, DC [2][16] then AC [2][256].
-constexpr int kDcBase = 0;
-constexpr int kAcBase = 32;
-constexpr int kPackedLut = 32 + 512;
-
-__device__ __forceinline__ void load_packed_luts(int* lut,
-                                                 const int32_t* dc_codes,
-                                                 const int32_t* dc_lens,
-                                                 const int32_t* ac_codes,
-                                                 const int32_t* ac_lens) {
-  for (int t = threadIdx.x; t < 32; t += blockDim.x)
-    lut[kDcBase + t] = (dc_codes[t] << 8) | dc_lens[t];
-  for (int t = threadIdx.x; t < 512; t += blockDim.x)
-    lut[kAcBase + t] = (ac_codes[t] << 8) | ac_lens[t];
-}
-
-// Slot k of a block with value v (the coefficient, or for k = 0 the DC
-// difference), the previous emitted slot prev and the last nonzero slot
-// last_nz: its symbol's code and magnitude bits and its length (0 where it
-// emits nothing), without a branch. The rules of jt::symbolize: ZRL only
-// when k < last_nz and (k - prev) % 16 == 0, EOB only at last_nz + 1
-// (which is past slot 63 when last_nz is 63). zrl and eob are the block
-// class's packed ZRL and EOB codes.
-__device__ __forceinline__ void slot_symbol(int k, int v, int prev,
-                                            int last_nz, int cls, int zrl,
-                                            int eob, const int* lut,
-                                            uint32_t* bits, int* len) {
-  const int s = 32 - __clz(v < 0 ? -v : v);          // size category
-  const int e = lut[k == 0 ? kDcBase + cls * 16 + s
-                           : kAcBase + cls * 256 +
-                                 ((((k - prev - 1) & 15) << 4) | s)];
-  const int ent = (k == 0 || v != 0) ? e
-                  : (k < last_nz && ((k - prev) & 15) == 0) ? zrl
-                  : k == last_nz + 1 ? eob : 0;
-  // One's complement of a negative value in its s bits.
-  const uint32_t mag = (uint32_t)(v + ((v >> 31) & ((1 << s) - 1)));
-  *bits = ((uint32_t)(ent >> 8) << s) | mag;
-  *len = (ent & 255) + s;
-}
-
-// One warp symbolizes a block whose slots 2l and 2l+1 lane l holds (a, b;
-// lane 0's a is replaced by the DC difference dcd): the two symbols as one
-// right-aligned run of *len bits (<= 52). Bit l of E and O says slot 2l
-// (slot 0 always: the DC sentinel) and slot 2l+1 is nonzero; the previous
-// nonzero slot before 2l is the higher of the last even and the last odd
-// one below lane l.
-__device__ __forceinline__ void pair_run(int a, int b, int cls, int dcd,
-                                         const int* lut, int lane,
-                                         unsigned long long* run, int* len) {
-  const uint32_t E = __ballot_sync(0xffffffffu, a != 0) | 1u;
-  const uint32_t O = __ballot_sync(0xffffffffu, b != 0);
-  const int last_e = 2 * (31 - __clz(E));
-  const int last_nz = O ? max(last_e, 2 * (31 - __clz(O)) + 1) : last_e;
-  const uint32_t below = (1u << lane) - 1u;
-  const uint32_t eb = E & below, ob = O & below;
-  const int pe = eb ? 2 * (31 - __clz(eb)) : -1;
-  const int po = ob ? 2 * (31 - __clz(ob)) + 1 : -1;
-  const int k0 = 2 * lane;
-  const int prev0 = max(pe, po);
-  const int prev1 = (a != 0 || lane == 0) ? k0 : prev0;
-  const int zrl = lut[kAcBase + cls * 256 + 0xF0];
-  const int eob = lut[kAcBase + cls * 256];
-  uint32_t b0, b1;
-  int l0, l1;
-  slot_symbol(k0, lane == 0 ? dcd : a, prev0, last_nz, cls, zrl, eob, lut,
-              &b0, &l0);
-  slot_symbol(k0 + 1, b, prev1, last_nz, cls, zrl, eob, lut, &b1, &l1);
-  *run = ((unsigned long long)b0 << l1) | b1;
-  *len = l0 + l1;
-}
-
-// OR the right-aligned run of len (1-52) bits into buf at bit off: it
-// spans at most three words; only their nonzero parts are ORed.
-__device__ __forceinline__ void put_run(uint32_t* buf, int off,
-                                        unsigned long long run, int len) {
-  const unsigned long long t = run << (64 - len);     // left-aligned
-  const int w = off >> 5, r = off & 31;
-  const uint32_t w0 = (uint32_t)(t >> (32 + r));
-  const uint32_t w1 = (uint32_t)(t >> r);
-  const uint32_t w2 = (uint32_t)(t << (32 - r));
-  if (w0) atomicOr(buf + w, w0);
-  if (w1) atomicOr(buf + w + 1, w1);
-  if (w2) atomicOr(buf + w + 2, w2);
-}
-
 // Where the encoder's launcher finds the DC values: dc[m * mcu_stride +
 // b * block_step] is block b of MCU m (the coefficients: g*64 and 64; the
 // DC plane: its lanes and 1).
@@ -194,12 +111,12 @@ block_pack_mcu_kernel(const int32_t* __restrict__ coeffs,
   const int g = kG ? kG : g_arg;
   extern __shared__ uint32_t smem[];
   int* lut = reinterpret_cast<int*>(smem);
-  load_packed_luts(lut, dc_codes, dc_lens, ac_codes, ac_lens);
+  jt::load_packed_luts(lut, dc_codes, dc_lens, ac_codes, ac_lens);
   for (int t = threadIdx.x; t < kWarps * mcu_words; t += kThreads)
-    smem[kPackedLut + t] = 0;
+    smem[jt::kPackedLut + t] = 0;
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint32_t* buf = smem + kPackedLut + warp * mcu_words;
+  uint32_t* buf = smem + jt::kPackedLut + warp * mcu_words;
   const long long stride = (long long)gridDim.x * kWarps;
   long long m = (long long)blockIdx.x * kWarps + warp;
   // m's place in its restart interval, kept by adds (restart > 0).
@@ -213,70 +130,32 @@ block_pack_mcu_kernel(const int32_t* __restrict__ coeffs,
     // previous MCU's at row[b * dc_step - mcu_stride].
     const int32_t* row = kDerive ? dcs.dc + m * dcs.mcu_stride : nullptr;
     const int dc_step = kDerive ? (int)dcs.block_step : 0;
-    int base = 0;                    // bits of the MCU's blocks so far
-    for (int b0 = 0; b0 < g; b0 += kChunk) {
-      // Load up to kChunk blocks at once, and each block's DC difference
-      // (every lane the same: uniform loads, no divergence before the
-      // ballots; only lane 0 uses it).
-      int a[kChunk], b[kChunk], bcls[kChunk], dcd[kChunk];
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const int bi = b0 + u;
-        a[u] = b[u] = bcls[u] = dcd[u] = 0;
-        if (kG || bi < g) {
-          const long long blk = m * g + bi;
-          const int2 pair = reinterpret_cast<const int2*>(coeffs + blk * 64)
-              [lane];
-          a[u] = pair.x;
-          b[u] = pair.y;
-          if (kDerive) {
-            bcls[u] = bi >= dcs.n_luma;
-            // The predictor: the luma block before in this MCU, else (after
-            // no reset) the last luma block, or the same chroma block, of
-            // the MCU before.
-            const bool same = bi > 0 && bi < dcs.n_luma;
-            const int pb = same ? bi - 1 : bi == 0 ? dcs.n_luma - 1 : bi;
-            int pred = 0;
-            if (same || !reset)
-              pred = row[pb * dc_step - (same ? 0 : dcs.mcu_stride)];
-            dcd[u] = row[bi * dc_step] - pred;
-          } else {
-            bcls[u] = cls[blk];
-            dcd[u] = dcdiff[blk];
-          }
-        }
+    // Block bi's slot pair, class and DC difference (every lane the same
+    // DC difference: uniform loads, no divergence before the ballots).
+    auto load = [&](int bi, int& a, int& b, int& bcls, int& dcd) {
+      const long long blk = m * g + bi;
+      const int2 pair = reinterpret_cast<const int2*>(coeffs + blk * 64)
+          [lane];
+      a = pair.x;
+      b = pair.y;
+      if (kDerive) {
+        bcls = bi >= dcs.n_luma;
+        // The predictor: the luma block before in this MCU, else (after
+        // no reset) the last luma block, or the same chroma block, of
+        // the MCU before.
+        const bool same = bi > 0 && bi < dcs.n_luma;
+        const int pb = same ? bi - 1 : bi == 0 ? dcs.n_luma - 1 : bi;
+        int pred = 0;
+        if (same || !reset)
+          pred = row[pb * dc_step - (same ? 0 : dcs.mcu_stride)];
+        dcd = row[bi * dc_step] - pred;
+      } else {
+        bcls = cls[blk];
+        dcd = dcdiff[blk];
       }
-      // Symbolize and scan each, as independent streams.
-      unsigned long long run[kChunk];
-      int where[kChunk], total[kChunk];  // in-block offset << 8 | length
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        run[u] = 0;
-        where[u] = total[u] = 0;
-        if (kG || b0 + u < g) {
-          int len;
-          pair_run(a[u], b[u], bcls[u], dcd[u], lut, lane, &run[u], &len);
-          const int ex = jt::warp_exclusive_scan(len, lane);
-          where[u] = (ex << 8) | len;
-          total[u] = __shfl_sync(0xffffffffu, ex + len, 31);
-        }
-      }
-      // Place them one after another.
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const int len = where[u] & 255;
-        if (len) put_run(buf, base + (where[u] >> 8), run[u], len);
-        base += total[u];
-      }
-    }
-    __syncwarp();
-    int32_t* dst = mwords + m * mcu_words;
-    for (int k = lane; k < (base + 31) >> 5; k += 32) {
-      dst[k] = (int32_t)buf[k];
-      buf[k] = 0;
-    }
-    if (lane == 0) mlens[m] = base;
-    __syncwarp();                     // the row is zero before the next MCU
+    };
+    const int bits = jt::pack_mcu<kG, kChunk>(g, load, lut, buf, lane);
+    jt::store_mcu(buf, mwords + m * mcu_words, mlens + m, bits, lane);
     phase += phase_step;
     if (phase >= rs) phase -= rs;
   }
@@ -290,7 +169,7 @@ int launch_grid(const int32_t* coeffs, const int32_t* cls,
                 const int32_t* dc_lens, const int32_t* ac_codes,
                 const int32_t* ac_lens, int32_t* mwords, int32_t* mlens,
                 long long n_mcu, int g, int mcu_words, cudaStream_t stream) {
-  const size_t smem = (kPackedLut + (size_t)kWarps * mcu_words) * 4;
+  const size_t smem = (jt::kPackedLut + (size_t)kWarps * mcu_words) * 4;
   int resident = 0;
   const int err = jt::resident_blocks(block_pack_mcu_kernel<kDerive, kG>,
                                       kThreads, smem, &resident);

@@ -1,12 +1,7 @@
-// The pixel products shared by the pixel kernels.
-//
-// mcu_product (fused_px_bp.cu's K11 alone): one MCU's quantized zigzag
-// coefficients are round_half_away(tile[kIn] . M[kIn, kOut] + bias), each
-// thread one column of the dense operator M, one CUDA-core float64 fma per
-// term.
-//
-// The factored product (pixel_mma.cu's K1, K12 and K13, pixel_dma.cu's
-// K14): the same coefficients from the two factors of M that
+// The factored pixel product shared by the pixel kernels (pixel_mma.cu's
+// K1, K12 and K13, pixel_dma.cu's K14) and the fused front end
+// (fused_px_bp.cu's K11): an MCU's quantized zigzag coefficients are
+// round_half_away(tile . M + bias), computed from the two factors of M that
 // jpegtpu_torch.kernels.fused_dctq.factor_operator checks M against, on the
 // float64 tensor cores (mma.sync m16n8k8 .f64):
 //   luma    [n_mcu * kLuma, 192] x lum [192, 64]: one row per 8x8 luma block,
@@ -15,7 +10,7 @@
 //           integer sums of its G chroma groups (2x2 pixels in 4:2:0 and
 //           4:4:4s, 1x2 in 4:2:2, 1x1 in 4:4:4) per channel; Cb's 64
 //           columns, then Cr's.
-// 73,728 multiply-adds a 4:2:0 MCU instead of the dense 294,912.
+// 73,728 multiply-adds a 4:2:0 MCU instead of the dense operator's 294,912.
 //
 // Why any order gives the same integers: factor_operator also checks that in
 // every column the bound 255 * sum|w| + |bias| and the finest bit set in a
@@ -23,8 +18,8 @@
 // every mode). Every partial sum of u8 (or group-sum) x weight terms is then
 // a multiple of that finest bit and no larger than the bound, so it is exact
 // in float64: the sum is the exact real value whatever the order, the
-// association or the fusing the hardware uses, and so are the dense
-// products of mcu_product, the plain twins and the factored plain form.
+// association or the fusing the hardware uses, and so are the dense plain
+// twins, the factored plain form and K11's scalar DC dot products.
 //
 // Products of u8 pixels and f32 operator entries are exact in float64.
 
@@ -33,32 +28,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace jt {
-
-// The MCU geometries of jpegtpu_torch.kernels.fused_dctq.mcu_operator.
-template <int kMh, int kMw, int kOut>
-struct PixelGeometry {
-  static constexpr int kIn = kMh * kMw * 3;   // MCU pixels, (y, x, c)
-  static constexpr int kRowBytes = kMw * 3;   // one MCU row of pixels
-  static constexpr int kBlocks = kOut / 64;   // blocks per MCU
-};
-
-// Each thread owns output column `col` of kSlots MCUs whose pixels sit in
-// px as doubles, laid out [kIn][kSlots]; acc[s] receives the dot product
-// of slot s with the column (no bias, no rounding).
-template <int kIn, int kOut, int kSlots>
-__device__ __forceinline__ void mcu_product(const double* px,
-                                            const float* __restrict__ m,
-                                            int col, double (&acc)[kSlots]) {
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) acc[s] = 0.0;
-  for (int i = 0; i < kIn; ++i) {
-    const double w = (double)__ldg(m + i * kOut + col);
-    const double* p = px + i * kSlots;
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) acc[s] = fma(p[s], w, acc[s]);
-  }
-}
 
 // a rounded half away from zero: a +- 0.5 truncated (one conversion).
 __device__ __forceinline__ int32_t round_half_away(double a) {
@@ -97,6 +69,9 @@ struct Factored {
   static constexpr int kChromaK = kGroups * 3;
   // u16 row pitch of the sums: 8-byte aligned rows on distinct banks.
   static constexpr int kSumStride = kGroups == 64 ? 208 : 48;
+  // int16 row pitch of a shared coefficient tile (K11): rows 4 banks apart,
+  // so the 8 rows and 4 column pairs of a store_tile quad hit 32 banks.
+  static constexpr int kCoefStride = kOut + 8;
   static constexpr int kLumFloats = 192 * 64;
   static constexpr int kChromaFloats = kChromaK * 128;
   static constexpr int kLumaTiles = kLuma * kTile / 32 * 2;
@@ -229,15 +204,19 @@ __device__ __forceinline__ void warp_gemm(double (&acc)[2][4][4], Load load,
   }
 }
 
-// Bias, round half away, and the coefficients of one warp tile into out
-// [n_mcu, kOut] int32: row r of the tile is MCU m0 + k0 + r, column c is
-// output column col0 + c. With kDc, also the DC plane dc [n_mcu, kDcLanes]:
-// the lane that rounds column 64k (nt 0, t 0, col0 a multiple of 64) writes
-// lane k, and the one of the last block also the zero lanes kBlocks..7.
-template <typename F, bool kDc>
+// Bias, round half away, and the coefficients of one warp tile into out:
+// row r of the tile is MCU m0 + k0 + r, column c is output column col0 + c.
+// Out int32_t: out is [n_mcu, kOut] in device memory, rows past n_mcu are
+// not stored; with kDc, also the DC plane dc [n_mcu, kDcLanes]: the lane
+// that rounds column 64k (nt 0, t 0, col0 a multiple of 64) writes lane k,
+// and the one of the last block also the zero lanes kBlocks..7. Out
+// int16_t (K11): out is the tile's shared [kTile][kCoefStride] int16 rows,
+// every row stored (rows past n_mcu are never read); the caller proves
+// that every coefficient fits in int16.
+template <typename F, bool kDc, typename Out>
 __device__ __forceinline__ void store_tile(const double (&acc)[2][4][4],
                                            const float* __restrict__ bias,
-                                           int32_t* __restrict__ out,
+                                           Out* __restrict__ out,
                                            int32_t* __restrict__ dc,
                                            long long m0, int k0, int col0,
                                            long long n_mcu, int lane) {
@@ -250,19 +229,28 @@ __device__ __forceinline__ void store_tile(const double (&acc)[2][4][4],
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const long long mcu = m0 + k0 + mt * 16 + h * 8 + g;
-        if (mcu < n_mcu) {
-          const int2 q = make_int2(
-              round_half_away(acc[mt][nt][2 * h] + (double)b.x),
-              round_half_away(acc[mt][nt][2 * h + 1] + (double)b.y));
-          *reinterpret_cast<int2*>(out + mcu * F::kOut + col) = q;
-          if constexpr (kDc) {
-            if (nt == 0 && t == 0 && col0 % 64 == 0) {
-              const int blk = col0 / 64;
-              int32_t* row = dc + mcu * kDcLanes;
-              row[blk] = q.x;
-              if (blk == F::kBlocks - 1) {
-                for (int k = F::kBlocks; k < kDcLanes; ++k) row[k] = 0;
+        if constexpr (std::is_same_v<Out, int16_t>) {
+          const int row = k0 + mt * 16 + h * 8 + g;
+          const int lo = round_half_away(acc[mt][nt][2 * h] + (double)b.x);
+          const int hi =
+              round_half_away(acc[mt][nt][2 * h + 1] + (double)b.y);
+          *reinterpret_cast<uint32_t*>(out + row * F::kCoefStride + col) =
+              (uint32_t)(lo & 0xFFFF) | ((uint32_t)hi << 16);
+        } else {
+          const long long mcu = m0 + k0 + mt * 16 + h * 8 + g;
+          if (mcu < n_mcu) {
+            const int2 q = make_int2(
+                round_half_away(acc[mt][nt][2 * h] + (double)b.x),
+                round_half_away(acc[mt][nt][2 * h + 1] + (double)b.y));
+            *reinterpret_cast<int2*>(out + mcu * F::kOut + col) = q;
+            if constexpr (kDc) {
+              if (nt == 0 && t == 0 && col0 % 64 == 0) {
+                const int blk = col0 / 64;
+                int32_t* row = dc + mcu * kDcLanes;
+                row[blk] = q.x;
+                if (blk == F::kBlocks - 1) {
+                  for (int k = F::kBlocks; k < kDcLanes; ++k) row[k] = 0;
+                }
               }
             }
           }
@@ -275,12 +263,13 @@ __device__ __forceinline__ void store_tile(const double (&acc)[2][4][4],
 // n_mcu are computed and not stored): warp `warp` of `warps` takes warp
 // tiles warp, warp + warps, ...; luma tiles first (block-major: tile rows
 // are 32 MCUs of one luma block, then the 32-column half), then chroma.
-// With kDc, the DC plane into dc as well (store_tile).
-template <typename F, bool kDc = false>
+// With kDc, the DC plane into dc as well; out int32_t device memory, or
+// int16_t shared memory (store_tile).
+template <typename F, bool kDc = false, typename Out>
 __device__ __forceinline__ void tile_product(
     const uint8_t* px, const uint16_t* sums, const float4* lum_f,
     const float4* chroma_f, const float* __restrict__ bias,
-    int32_t* __restrict__ out, long long m0, long long n_mcu, int warp,
+    Out* __restrict__ out, long long m0, long long n_mcu, int warp,
     int warps, int lane, int32_t* __restrict__ dc = nullptr) {
   const int g = lane >> 2, t = lane & 3;
   double acc[2][4][4];
@@ -323,5 +312,57 @@ __device__ __forceinline__ void tile_product(
     }
   }
 }
+
+// The centred int8 view back to u8 (K13): each byte XOR 0x80 (K13 is 4:2:0
+// only, so its pieces are 16 bytes).
+__device__ __forceinline__ void flip_bytes(uint4& p) {
+  p.x ^= 0x80808080u; p.y ^= 0x80808080u; p.z ^= 0x80808080u;
+  p.w ^= 0x80808080u;
+}
+
+// A tile's pixels staged by kThreads threads through registers (K1, K12,
+// K13 and K11): each thread fetches its pieces of the next tile before the
+// current tile's product, so the loads overlap it, and stores them into the
+// staged tile after the next barrier.
+template <typename F, int kThreads>
+struct Staging {
+  // 16-byte pieces where an MCU row is 48 bytes, 8-byte where it is 24.
+  using Piece = std::conditional_t<F::kRowBytes % 16 == 0, uint4, uint2>;
+  static constexpr int kBytes = (int)sizeof(Piece);
+  static constexpr int kPerRow = F::kRowBytes / kBytes;   // pieces an MCU row
+  static constexpr int kPerThread = F::kTileBytes / kBytes / kThreads;
+  static_assert(F::kTileBytes % (kBytes * kThreads) == 0, "pieces");
+  // K1's shared memory: the operators, the sums and one staged tile.
+  static constexpr int kSmemBytes = F::kPixelOffset + F::kTileBytes;
+  static_assert(kSmemBytes <= 232448, "shared memory");
+
+  // This thread's pieces of the tile at MCU m0 (zeros past n_mcu). Piece q
+  // is row y, MCU k, part p of the tile, and lands at byte q * kBytes of
+  // the staged tile [kMh][kTile * kRowBytes]. kI8: the image is the centred
+  // int8 view, restored to u8 here.
+  template <bool kI8>
+  __device__ static void fetch(Piece (&r)[kPerThread],
+                               const uint8_t* __restrict__ img, long long m0,
+                               long long n_mcu, unsigned nrx,
+                               long long row_bytes) {
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int q = threadIdx.x + i * kThreads;
+      const int y = q / (F::kTile * kPerRow);
+      const int rem = q - y * (F::kTile * kPerRow);
+      const int k = rem / kPerRow, part = rem - k * kPerRow;
+      const long long mcu = m0 + k;
+      r[i] = Piece{};
+      if (mcu < n_mcu) {
+        const unsigned row = (unsigned)mcu / nrx;
+        const unsigned col = (unsigned)mcu - row * nrx;
+        r[i] = __ldg(reinterpret_cast<const Piece*>(
+            img + ((long long)row * F::kMcuH + y) * row_bytes +
+            (long long)col * F::kRowBytes + part * kBytes));
+        if constexpr (kI8) flip_bytes(r[i]);
+      }
+    }
+  }
+};
 
 }  // namespace jt

@@ -31,8 +31,8 @@
 // memory, then per tile stages the pixels as u8 (each thread fetches its
 // 16- or 8-byte pieces of the next tile into registers before the current
 // tile's product, so the loads overlap it), forms the chroma group sums and
-// runs the two products in 32 x 32 warp tiles. Only K11 (fused_px_bp.cu)
-// keeps the dense product.
+// runs the two products in 32 x 32 warp tiles. K11 (fused_px_bp.cu) runs
+// the same staging and product into a shared-memory coefficient tile.
 //
 // Bound: the float64 tensor-core rate. 4:2:0 needs 73,728 multiply-adds an
 // MCU (4.78 GFLOP at 3840x2160, 0.071 ms at 67 TFLOP/s) against 25 MB of
@@ -52,8 +52,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "grid.cuh"
 #include "pixel_common.cuh"
 
@@ -61,53 +59,6 @@ namespace {
 
 constexpr int kWarps = 12;
 constexpr int kThreads = kWarps * 32;
-
-// The centred int8 view back to u8: each byte XOR 0x80 (K13 is 4:2:0
-// only, so its pieces are 16 bytes).
-__device__ __forceinline__ void flip_bytes(uint4& p) {
-  p.x ^= 0x80808080u; p.y ^= 0x80808080u; p.z ^= 0x80808080u;
-  p.w ^= 0x80808080u;
-}
-
-template <typename F>
-struct Staging {
-  // 16-byte pieces where an MCU row is 48 bytes, 8-byte where it is 24.
-  using Piece = std::conditional_t<F::kRowBytes % 16 == 0, uint4, uint2>;
-  static constexpr int kBytes = (int)sizeof(Piece);
-  static constexpr int kPerRow = F::kRowBytes / kBytes;   // pieces an MCU row
-  static constexpr int kPerThread = F::kTileBytes / kBytes / kThreads;
-  static_assert(F::kTileBytes % (kBytes * kThreads) == 0, "pieces");
-  static constexpr int kSmemBytes = F::kPixelOffset + F::kTileBytes;
-  static_assert(kSmemBytes <= 232448, "shared memory");
-
-  // This thread's pieces of the tile at MCU m0 (zeros past n_mcu). Piece q
-  // is row y, MCU k, part p of the tile, and lands at byte q * kBytes of
-  // the staged tile [kMh][kTile * kRowBytes]. kI8: the image is the centred
-  // int8 view, restored to u8 here.
-  template <bool kI8>
-  __device__ static void fetch(Piece (&r)[kPerThread],
-                               const uint8_t* __restrict__ img, long long m0,
-                               long long n_mcu, unsigned nrx,
-                               long long row_bytes) {
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int q = threadIdx.x + i * kThreads;
-      const int y = q / (F::kTile * kPerRow);
-      const int rem = q - y * (F::kTile * kPerRow);
-      const int k = rem / kPerRow, part = rem - k * kPerRow;
-      const long long mcu = m0 + k;
-      r[i] = Piece{};
-      if (mcu < n_mcu) {
-        const unsigned row = (unsigned)mcu / nrx;
-        const unsigned col = (unsigned)mcu - row * nrx;
-        r[i] = __ldg(reinterpret_cast<const Piece*>(
-            img + ((long long)row * F::kMcuH + y) * row_bytes +
-            (long long)col * F::kRowBytes + part * kBytes));
-        if constexpr (kI8) flip_bytes(r[i]);
-      }
-    }
-  }
-};
 
 template <int kMh, int kMw, int kGroups, int kTile, bool kI8, bool kDc>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -118,7 +69,7 @@ pixel_mma_kernel(const uint8_t* __restrict__ img,
                  int32_t* __restrict__ dc, long long n_mcu, unsigned nrx,
                  long long row_bytes, long long n_tiles) {
   using F = jt::Factored<kMh, kMw, kGroups, kTile>;
-  using S = Staging<F>;
+  using S = jt::Staging<F, kThreads>;
   extern __shared__ __align__(16) unsigned char smem[];
   float4* lum_f = reinterpret_cast<float4*>(smem);
   float4* chroma_f = lum_f + F::kLumFloats / 4;
@@ -155,7 +106,7 @@ int launch(const uint8_t* img, const float* lum, const float* chroma,
            const float* bias, int32_t* out, int32_t* dc, long long n_mcu,
            long long nrx, long long row_bytes, cudaStream_t stream) {
   using F = jt::Factored<kMh, kMw, kGroups, kTile>;
-  using S = Staging<F>;
+  using S = jt::Staging<F, kThreads>;
   const auto kernel = pixel_mma_kernel<kMh, kMw, kGroups, kTile, kI8, kDc>;
   if ((reinterpret_cast<uintptr_t>(img) | (uintptr_t)row_bytes) %
       S::kBytes)
@@ -236,12 +187,12 @@ extern "C" int jt_pixel_i8(const int8_t* img, const float* lum,
 // refuses), the same for every option, for reports.
 extern "C" int jt_pixel_smem(int mh, int mw, int groups) {
   if (mh == 16 && mw == 16 && groups == 64)
-    return Staging<jt::Factored<16, 16, 64, 32>>::kSmemBytes;
+    return jt::Staging<jt::Factored<16, 16, 64, 32>, kThreads>::kSmemBytes;
   if (mh == 8 && mw == 16 && groups == 64)
-    return Staging<jt::Factored<8, 16, 64, 96>>::kSmemBytes;
+    return jt::Staging<jt::Factored<8, 16, 64, 96>, kThreads>::kSmemBytes;
   if (mh == 8 && mw == 8 && groups == 64)
-    return Staging<jt::Factored<8, 8, 64, 64>>::kSmemBytes;
+    return jt::Staging<jt::Factored<8, 8, 64, 64>, kThreads>::kSmemBytes;
   if (mh == 8 && mw == 8 && groups == 16)
-    return Staging<jt::Factored<8, 8, 16, 128>>::kSmemBytes;
+    return jt::Staging<jt::Factored<8, 8, 16, 128>, kThreads>::kSmemBytes;
   return 0;
 }

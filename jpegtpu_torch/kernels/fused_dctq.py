@@ -38,8 +38,8 @@ K1, K12, K13 and K14 multiply by the operator's two factors
 for every luma block, and chroma [G*3, 128] over the exact integer sums of
 the chroma groups, on the float64 tensor cores; K1, K12 and K13 are one
 kernel body (K12 adds the DC plane to its epilogue, K13 XORs the int8
-view back to u8 as it stages it), and only the fused K11
-(``fused_pipeline``) keeps the dense product.
+view back to u8 as it stages it), and the fused K11 (``fused_pipeline``)
+runs the same staging and product into a shared int16 tile.
 ``encode_blocks_factored_plain`` is the factored arithmetic in torch. The
 wrappers get the factors of a CUDA operator from ``EncoderTables``, which
 factors its operator on the host when it is made; one that does not
@@ -90,6 +90,7 @@ PIXEL_DMA = _build.Kernel("jt_pixel_dma", [
 # _PIXEL_DC, read from the same variable at import, fused_dctq.py:354).
 PIXEL_DC = os.environ.get("JPEGTPU_PIXEL_DC", "0") != "0"
 DC_LANES = 8                                          # lanes of a DC row
+INT16_MAX = 32767
 
 
 def fused_geometry(subsampling: str) -> Tuple[int, int, int, int]:
@@ -213,18 +214,29 @@ def expand_factors(lum: np.ndarray, chroma: np.ndarray,
     return big.reshape(mh * mw * 3, n_out)
 
 
-def operator_bits(m, bias=None) -> np.ndarray:
-    """Per output column of an operator [in, out] f32 (with its bias): how
-    many bits lie between the finest bit set in any nonzero weight or the
-    bias and the magnitude bound ``255 * sum|w| + |bias|`` of the column's
-    sum over u8 pixels. Every partial sum of such a column, in any order
-    and any association, is a multiple of that finest bit no larger than
-    the bound, so it is exact in float64 (53 bits) where this is <= 53.
-    The bound is summed in float64 and raised by 2**-40 (far above that
-    sum's rounding error), so the count never comes out low."""
+def _weights_and_bias(m, bias=None) -> Tuple[np.ndarray, np.ndarray]:
     w = _operator_array(m)
     b = np.zeros(w.shape[1], np.float32) if bias is None else \
         _operator_array(bias)
+    return w, b
+
+
+def _column_bounds(w: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Per column, the magnitude bound ``255 * sum|w| + |bias|`` of its sum
+    over u8 pixels, summed in float64 and raised by 2**-40 (far above that
+    sum's rounding error), so it never comes out low."""
+    return (255.0 * np.abs(w.astype(np.float64)).sum(axis=0) +
+            np.abs(b.astype(np.float64))) * (1 + 2.0 ** -40)
+
+
+def operator_bits(m, bias=None) -> np.ndarray:
+    """Per output column of an operator [in, out] f32 (with its bias): how
+    many bits lie between the finest bit set in any nonzero weight or the
+    bias and the magnitude bound of the column's sum over u8 pixels
+    (``_column_bounds``). Every partial sum of such a column, in any order
+    and any association, is a multiple of that finest bit no larger than
+    the bound, so it is exact in float64 (53 bits) where this is <= 53."""
+    w, b = _weights_and_bias(m, bias)
     vals = np.concatenate([w, b[None, :]], axis=0)
     bits = vals.view(np.uint32) & 0x7FFFFFFF
     exp = (bits >> 23).astype(np.int64)
@@ -233,10 +245,18 @@ def operator_bits(m, bias=None) -> np.ndarray:
     low = np.frexp((mant & -mant).astype(np.float64))[1] - 1   # ctz(mant)
     finest = np.where(mant != 0, np.maximum(exp, 1) - 150 + low,
                       np.iinfo(np.int64).max).min(axis=0)
-    bound = (255.0 * np.abs(w.astype(np.float64)).sum(axis=0) +
-             np.abs(b.astype(np.float64))) * (1 + 2.0 ** -40)
+    bound = _column_bounds(w, b)
     top = np.ceil(np.log2(np.where(bound > 0, bound, 1.0))).astype(np.int64)
     return np.where(bound > 0, top - finest, 0)
+
+
+def coefficient_bound(m, bias=None) -> float:
+    """The largest magnitude a coefficient of the operator m [in, out] f32
+    with bias can take over u8 pixels, before rounding: the widest
+    column's bound (``_column_bounds``). Every rounded coefficient fits in
+    int16 where this is at most ``INT16_MAX`` (3,064.00 for every fused
+    mode at every quality 1-100)."""
+    return float(_column_bounds(*_weights_and_bias(m, bias)).max())
 
 
 def factor_operator(m, subsampling: str, bias=None
@@ -277,19 +297,22 @@ def factor_operator(m, subsampling: str, bias=None
     return lum, chroma
 
 
-# (id of an operator, mode) -> its factors on the same device, with weak
-# references to the operator and its bias and their version counters, which
-# prove the entry is still those tensors, unmodified; the entry goes when
-# either does (EncoderTables records its factors whenever it moves). A table
-# beside the wrappers because they keep jpegtpu's signature (img, m, bias,
-# subsampling), which has no place for the factors.
+# (id of an operator, mode) -> its factors on the same device and its
+# coefficient_bound, with weak references to the operator and its bias and
+# their version counters, which prove the entry is still those tensors,
+# unmodified; the entry goes when either does (EncoderTables records its
+# factors whenever it moves). A table beside the wrappers because they keep
+# jpegtpu's signature (img, m, bias, subsampling), which has no place for
+# the factors.
 _FACTORS: dict = {}
 
 
 def remember_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str,
-                     lum: torch.Tensor, chroma: torch.Tensor) -> None:
+                     lum: torch.Tensor, chroma: torch.Tensor,
+                     bound: float) -> None:
     """Record lum and chroma as the subsampling-mode factors of m with
-    bias, for the pixel wrappers."""
+    bias, and bound as its ``coefficient_bound``, for the pixel
+    wrappers."""
     key = (id(m), subsampling)
 
     def drop(_):
@@ -300,25 +323,39 @@ def remember_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str,
             del factors[key]
 
     entry = (weakref.ref(m, drop), m._version, weakref.ref(bias, drop),
-             bias._version, lum, chroma)
+             bias._version, lum, chroma, bound)
     _FACTORS[key] = entry
 
 
-def cuda_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The factors of the CUDA operator m as f32 tensors on its device:
-    those recorded for this m and this bias, both unmodified (no device
-    sync), else factored on the host from copies of the two (one sync;
+def _factored(m: torch.Tensor, bias: torch.Tensor, subsampling: str
+              ) -> tuple:
+    """The factor table's entry for m with bias, both unmodified (no device
+    sync), else m factored on the host from copies of the two (a sync;
     ``factor_operator``, which checks the columns' width with this bias)
     and recorded."""
     hit = _FACTORS.get((id(m), subsampling))
     if (hit is not None and hit[0]() is m and hit[1] == m._version
             and hit[2]() is bias and hit[3] == bias._version):
-        return hit[4], hit[5]
+        return hit
     lum, chroma = (torch.from_numpy(a).to(m.device)
                    for a in factor_operator(m, subsampling, bias))
-    remember_factors(m, bias, subsampling, lum, chroma)
-    return lum, chroma
+    remember_factors(m, bias, subsampling, lum, chroma,
+                     coefficient_bound(m, bias))
+    return _FACTORS[(id(m), subsampling)]
+
+
+def cuda_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The factors of the CUDA operator m as f32 tensors on its device:
+    those recorded for this m and this bias (``_factored``)."""
+    return _factored(m, bias, subsampling)[4:6]
+
+
+def recorded_coefficient_bound(m: torch.Tensor, bias: torch.Tensor,
+                               subsampling: str) -> float:
+    """``coefficient_bound`` of m with bias, recorded with its factors
+    (``_factored``: no device sync once they are recorded)."""
+    return _factored(m, bias, subsampling)[6]
 
 
 def mcu_tiles(img: torch.Tensor, mh: int, mw: int) -> torch.Tensor:

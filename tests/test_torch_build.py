@@ -85,3 +85,13 @@ def test_every_launcher_is_declared():
     launchers = {s for s, (_, params) in _launchers().items()
                  if params and params[-1].split()[0] == "cudaStream_t"}
     assert launchers == set(KERNELS)
+
+
+def test_fused_launcher_takes_the_factors():
+    """K11's launcher takes the image, the operator's two factors and the
+    bias, then the LUTs and the outputs, not the dense operator."""
+    source, params = _launchers()[fused_pipeline.FUSED_PX_BP.symbol]
+    assert source == "fused_px_bp.cu"
+    assert [p.split()[-1].lstrip("*") for p in params[:4]] == [
+        "img", "lum", "chroma", "bias"]
+    assert not any(p.split()[-1].lstrip("*") == "m" for p in params)

@@ -665,8 +665,9 @@ def _restart_of(restart, w, mode):
 # (mode, image, restart): the fused kernel at one pixel, at widths whose
 # MCU count is no multiple of 8 (37x53: 4 MCUs a row at 4:2:0; 120x200:
 # 13), at 4:4:4 (g = 3, odd), with no restart (every block's first MCU
-# takes its DC predictor from the halo MCU), resets after every MCU, and
-# intervals that fall inside thread blocks (5, 7, rows of 13).
+# takes its DC predictor from the scalar dot products of the MCU before),
+# resets after every MCU, and intervals that fall inside tiles (5, 7, rows
+# of 13).
 FUSED_CASES = [("420", "pixel_1x1", 0), ("420", "odd_37x53", "rows"),
                ("420", "random_120x200", 0), ("420", "random_120x200", 1),
                ("420", "random_120x200", 5), ("420", "gradient_64x128", 7),
@@ -678,8 +679,8 @@ FUSED_CASES = [("420", "pixel_1x1", 0), ("420", "odd_37x53", "rows"),
 
 @pytest.mark.parametrize("mode,name,restart", FUSED_CASES)
 def test_fused_kernel_matches_twin(dev, mode, name, restart):
-    """K11 against its twin, word for word (zeros past each length too),
-    in one launch."""
+    """K11 against its twin in one launch: the lengths and the stream bits
+    (the words past ceil(mlen / 32) are undefined on the card, as K2's)."""
     x = torch.from_numpy(IMAGES[name]()).to(dev)
     t = EncoderTables.for_quality(90, mode, dev)
     r = _restart_of(restart, x.shape[1], mode)
@@ -688,7 +689,8 @@ def test_fused_kernel_matches_twin(dev, mode, name, restart):
     assert launches["fused_px_bp"] == 1 and launches["block_pack"] == 0
     mw_p, ml_p = fused_pipeline.fused_pixel_block_pack_pairs_plain(x, t,
                                                                    mode, r)
-    assert torch.equal(ml, ml_p) and torch.equal(mw, mw_p)
+    assert torch.equal(ml, ml_p)
+    assert torch.equal(_masked(mw, ml), _masked(mw_p, ml_p))
 
 
 @pytest.mark.parametrize("mode", ["420", "422", "444"])
@@ -706,7 +708,69 @@ def test_fused_kernel_on_a_batch_view(dev, mode):
         mw, ml = fused_pipeline.fused_pixel_block_pack_pairs(x, t, mode, r)
         mw_p, ml_p = fused_pipeline.fused_pixel_block_pack_pairs_plain(
             x, t, mode, r)
-        assert torch.equal(ml, ml_p) and torch.equal(mw, mw_p)
+        assert torch.equal(ml, ml_p)
+        assert torch.equal(_masked(mw, ml), _masked(mw_p, ml_p))
+
+
+@pytest.mark.parametrize("q", [1, 100])
+@pytest.mark.parametrize("mode", ["420", "422", "444"])
+def test_fused_kernel_at_the_quality_extremes(dev, mode, q):
+    """K11 at q 1 (almost every AC slot zero) and q 100 (the widest
+    coefficients), restart 5, on a 1024x2048 image: 256 tiles at 4:2:0 and
+    512 at 4:2:2 and 4:4:4, more than the grid's blocks, so each block's run
+    holds several tiles and DC values carry from tile to tile."""
+    x = torch.from_numpy(_random(1024, 2048, q)).to(dev)
+    t = EncoderTables.for_quality(q, mode, dev)
+    mw, ml = fused_pipeline.fused_pixel_block_pack_pairs(x, t, mode, 5)
+    mw_p, ml_p = fused_pipeline.fused_pixel_block_pack_pairs_plain(x, t,
+                                                                   mode, 5)
+    assert torch.equal(ml, ml_p)
+    assert torch.equal(_masked(mw, ml), _masked(mw_p, ml_p))
+
+
+@pytest.mark.parametrize("restart", [0, 7])
+@pytest.mark.parametrize("mode", ["420", "422", "444"])
+def test_fused_kernel_writes_valid_words_and_no_more(dev, mode, restart):
+    """K11 launched onto sentinel-filled outputs one MCU row longer than
+    the image: each MCU's first ceil(mlen / 32) words and its length are
+    the twin's, and nothing is written past them."""
+    x = torch.from_numpy(_random(120, 200, 31)).to(dev)
+    t = EncoderTables.for_quality(90, mode, dev)
+    mh, mw = ops.mcu_shape(mode)
+    padded = ops.pad_to_multiple(x, (mh, mw)).contiguous()
+    nrx = padded.shape[1] // mw
+    n_mcu = (padded.shape[0] // mh) * nrx
+    words = entropy_pack.mcu_words(t.bias.shape[0] // 64)
+    out = torch.full((n_mcu + nrx, words), SENTINEL, dtype=torch.int32,
+                     device=dev)
+    lens = torch.full((n_mcu + nrx,), SENTINEL, dtype=torch.int32,
+                      device=dev)
+    lum, chroma = fused_dctq.cuda_factors(t.m, t.bias, mode)
+    fused_pipeline.FUSED_PX_BP.launch(
+        dev, padded.data_ptr(), lum.data_ptr(), chroma.data_ptr(),
+        t.bias.data_ptr(), *(u.data_ptr() for u in t.luts()),
+        out.data_ptr(), lens.data_ptr(), n_mcu, nrx, padded.shape[1] * 3,
+        restart, mh, mw, words)
+    mw_p, ml_p = fused_pipeline.fused_pixel_block_pack_pairs_plain(
+        x, t, mode, restart)
+    assert torch.equal(lens[:n_mcu], ml_p) and _past(out[:n_mcu], ml_p) == 0
+    assert torch.equal(_masked(out[:n_mcu], ml_p), _masked(mw_p, ml_p))
+    assert bool((out[n_mcu:] == SENTINEL).all())
+    assert bool((lens[n_mcu:] == SENTINEL).all())
+
+
+def test_fused_kernel_refuses_coefficients_past_int16(dev):
+    """An operator whose coefficients could pass 32,767 (the 4:2:0 one
+    times 64: it still factors and is exact in float64) raises before a
+    launch, on the card as on the CPU."""
+    t = EncoderTables.for_quality(90, "420", dev)
+    big = EncoderTables(t.m * 64, t.bias * 64, *t.luts(), t.block_m,
+                        t.block_bias)
+    x = torch.from_numpy(_random(32, 32, 3)).to(dev)
+    fused_pipeline.FUSED_PX_BP.launches = 0
+    with pytest.raises(ValueError, match="int16"):
+        fused_pipeline.fused_pixel_block_pack_pairs(x, big, "420", 0)
+    assert fused_pipeline.FUSED_PX_BP.launches == 0
 
 
 @pytest.mark.parametrize("q", [1, 50, 90, 100])

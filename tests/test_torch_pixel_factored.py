@@ -1,10 +1,13 @@
-"""The factored pixel product of K1, K12, K13 and K14 on the CPU: the
+"""The factored pixel product of K1, K12, K13, K14 and K11 on the CPU: the
 factors reproduce ``mcu_operator`` bit for bit, every column's sum is
 exact in float64 in any order, an operator that does not factor raises,
 the factored plain form gives the dense twin's coefficients, its DC plane
 (K12's) and, on the image the int8 view restores, the i8 twin's (K13's),
-``Kernel.launch`` runs on its operands' device, and a process that made
-``EncoderTables`` exits quietly. Imports no JAX: the port's
+K11's scalar DC dot products give the dense twin's DC coefficients, every
+coefficient fits K11's int16 tile at every quality and the fused wrapper
+refuses an operator whose coefficients could not, ``Kernel.launch`` runs
+on its operands' device, and a process that made ``EncoderTables`` exits
+quietly. Imports no JAX: the port's
 ``mcu_operator`` is pinned to jpegtpu's by ``tests/test_torch_tables.py``
 and ``tests/test_torch_modes.py``."""
 
@@ -19,7 +22,7 @@ import torch
 
 from jpegtpu_torch.core import ops
 from jpegtpu_torch.encoder import EncoderTables
-from jpegtpu_torch.kernels import _build, fused_dctq
+from jpegtpu_torch.kernels import _build, fused_dctq, fused_pipeline
 
 MODES = ("420", "422", "444", "444s")
 QUALITIES = (1, 10, 50, 75, 90, 95, 100)
@@ -306,3 +309,58 @@ def test_factor_table_is_quiet_at_exit():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "Exception ignored" not in res.stderr, res.stderr
+
+
+@pytest.mark.parametrize("q", PIXEL_QUALITIES)
+@pytest.mark.parametrize("mode", fused_pipeline.FUSED_MODES)
+def test_halo_dc_equals_the_dense_twins_dc(image, mode, q):
+    """K11's arithmetic where a block's run of tiles starts: the scalar
+    float64 dot products of each MCU's pixels with the factors' DC columns
+    (lum's 0 over the last luma block, chroma's 0 and 64 over the group
+    sums), plus the bias and rounded, are the dense twin's DC
+    coefficients of that block, Cb and Cr, which predict the next MCU."""
+    t = EncoderTables.for_quality(q, mode)
+    x = torch.from_numpy(image)
+    dense = fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias, mode)
+    n_luma = dense.shape[1] // 64 - 2
+    got = fused_pipeline.halo_dc_plain(x, t.lum, t.chroma, t.bias, mode)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, dense[:, [64 * (n_luma - 1), 64 * n_luma,
+                                      64 * n_luma + 64]])
+
+
+@pytest.mark.parametrize("mode", fused_pipeline.FUSED_MODES)
+def test_every_coefficient_fits_int16_at_every_quality(mode):
+    """K11 keeps a tile's coefficients in int16: at every quality 1-100 the
+    widest column's bound over u8 pixels, bias included, is at most 32,767
+    (3,064.0 at most: the DC column's 255 * 8 + 1,024)."""
+    bounds = [fused_dctq.coefficient_bound(*fused_dctq.mcu_operator(q, mode))
+              for q in range(1, 101)]
+    assert max(bounds) <= fused_dctq.INT16_MAX
+    assert 3064 <= max(bounds) < 3064.001
+
+
+def test_coefficient_bound_counts_exactly():
+    """Columns [1, 0.5] and [-2, 0] over u8 pixels with biases -3 and 10:
+    255 * 1.5 + 3 and 255 * 2 + 10, the larger, raised by 2**-40."""
+    m = np.array([[1.0, -2.0], [0.5, 0.0]], np.float32)
+    got = fused_dctq.coefficient_bound(m, np.float32([-3.0, 10.0]))
+    assert got == 520.0 * (1 + 2.0 ** -40)
+    assert fused_dctq.coefficient_bound(m) == 510.0 * (1 + 2.0 ** -40)
+
+
+def test_fused_wrapper_refuses_coefficients_past_int16():
+    """The 4:2:0 operator and bias times 64 still factor and are exact in
+    float64, but their coefficients could reach 64 * 3,064: the tables
+    record that bound, and the fused wrapper and its twin raise on it."""
+    t = EncoderTables.for_quality(90, "420")
+    big = EncoderTables(t.m * 64, t.bias * 64, *t.luts(), t.block_m,
+                        t.block_bias)
+    assert big.coefficient_bound == 64 * t.coefficient_bound
+    assert fused_dctq.recorded_coefficient_bound(
+        big.m, big.bias, "420") == big.coefficient_bound
+    x = torch.from_numpy(_random(16, 16, 3))
+    for fn in (fused_pipeline.fused_pixel_block_pack_pairs,
+               fused_pipeline.fused_pixel_block_pack_pairs_plain):
+        with pytest.raises(ValueError, match="int16"):
+            fn(x, big, "420", 0)
