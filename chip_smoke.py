@@ -87,6 +87,10 @@ PROFILED = (("420", "rows", {}), ("420", 0, {}), ("420", 7, {}),
             ("420", "rows", {"pixel_path": "dma"}),
             ("420", "rows", {"pixel_dc": True}))
 TIMING_REPS = 20
+# Profiler keys of the segment-merge body's instances <kPad, kZeroTail>.
+K3_KEY = "seg_merge_mcu_kernel<true, false>"
+K10_KEY = "seg_merge_mcu_kernel<true, true>"
+K8_KEY = "seg_merge_mcu_kernel<false, true>"
 # Launches of each stuffing wrapper on each stuffing input in phase 3.
 STUFF_REPEATS = 20
 # Qualities at which phase 3 holds K1 and K12 (every geometry), K13 and K14
@@ -365,6 +369,10 @@ def main() -> int:
                 else klib.jt_pixel_dma_smem())
         print(f"[build] {kernel}: {props}; dynamic shared memory {smem} "
               f"bytes a block")
+    # The segment-merge body's instances, by <kPad, kZeroTail>: K3 <1, 0>,
+    # K10 <1, 1>, K8 <0, 1>.
+    for kernel, props in ptxas_entries(build_log, ("seg_merge_mcu_kernel",)):
+        print(f"[build] {kernel}: {props}")
 
     # 3. Each kernel against its plain twin, at the paths' shapes.
     h, w = BENCH_SHAPE
@@ -848,13 +856,13 @@ def main() -> int:
                 "jpegtpu/kernels/compact.py:44"),
                ("block_pack_blocks", entropy_pack.PACK_BLOCKS,
                 "block_pack.cu", "jpegtpu/kernels/entropy_pack.py:334"),
-               ("mcu_merge", entropy_oracles.MCU_MERGE, "mcu_merge.cu",
+               ("mcu_merge", entropy_oracles.MCU_MERGE, "seg_merge.cu",
                 "jpegtpu/kernels/entropy_oracles.py:33"),
                ("seg_merge_window", entropy_oracles.SEG_MERGE_WINDOW,
                 "seg_merge_window.cu",
                 "jpegtpu/kernels/entropy_oracles.py:125"),
                ("seg_merge_v1", entropy_oracles.SEG_MERGE_V1,
-                "seg_merge_v1.cu", "jpegtpu/kernels/entropy_oracles.py:266"),
+                "seg_merge.cu", "jpegtpu/kernels/entropy_oracles.py:266"),
                ("fused_px_bp", fused_pipeline.FUSED_PX_BP, "fused_px_bp.cu",
                 "jpegtpu/kernels/fused_pipeline.py:57"),
                ("pixel_dc", fused_dctq.PIXEL_DC_PLANE, "pixel_mma.cu",
@@ -1021,6 +1029,22 @@ def main() -> int:
     # twin on the inputs it had in that run, K8 of K7 against K2's MCU
     # streams, and each rung's segments against the encode path's K2 -> K3
     # segments: the same bits, and the same words through the padded byte.
+    def sentinel_merge(kern, rows, lens, ns_, per, width):
+        """K8 or K10 launched directly into rows 1 .. ns_ of an [ns_ + 2,
+        width] buffer filled with SENTINEL (the bit counts likewise), not
+        counted as a launch: (the buffer, its bit counts)."""
+        buf = torch.full((ns_ + 2, width), SENTINEL, dtype=torch.int32,
+                         device=dev)
+        sbuf = torch.full((ns_ + 2,), SENTINEL, dtype=torch.int32,
+                          device=dev)
+        n_scr = entropy_pack.seg_merge_scratch_words(ns_, per, True)
+        scr = torch.empty(max(n_scr, 1), dtype=torch.int64, device=dev)
+        kern.launch(dev, rows.data_ptr(), lens.data_ptr(), buf[1].data_ptr(),
+                    sbuf[1:].data_ptr(), scr.data_ptr() if n_scr else None,
+                    ns_, per, rows.shape[1], width)
+        kern.launches -= 1
+        return buf, sbuf
+
     def ladder(c, k, d, ns, mps, g, w_cap):
         bw_, bl_ = entropy_pack.block_pack(c.reshape(-1, 64), k, d)
         return bw_, bl_, entropy_pack.mcu_merge(bw_, bl_, g), {
@@ -1040,7 +1064,7 @@ def main() -> int:
     oracle_names = ("block_pack_blocks", "mcu_merge", "seg_merge_window",
                     "seg_merge_v1")
     errs.update(dict.fromkeys(oracle_names, 0))
-    lad = {}                    # the 420 rows and restart-0 runs, for timing
+    lad = {}            # the 420 rows and restart-0 runs and 444's, for timing
     for label, (c, sub, r) in ladder_inputs.items():
         n_luma = EncoderConfig(subsampling=sub).n_luma
         nm, g = c.shape[0], c.shape[1] // 64
@@ -1081,6 +1105,28 @@ def main() -> int:
             (n0, e0), (n1, e1) = diff(got[0], twin[0]), diff(got[1], twin[1])
             errs[n] = max(errs[n], e0, e1)
             report(what, n0 + n1, max(e0, e1))
+        # K8 and K10 (instances of K3's body with the zero tail) once more
+        # between sentinel rows: every word of each output row written,
+        # nothing outside the output.
+        for n, kk, kern, ns_, per in (
+                ("mcu_merge", "K8", entropy_oracles.MCU_MERGE, nm, g),
+                ("seg_merge_v1", "K10", entropy_oracles.SEG_MERGE_V1, ns,
+                 mps * g)):
+            twin_w, twin_b = checks[n][2]
+            tiles = entropy_pack.seg_merge_tiles(ns_, per, twin_w.shape[1],
+                                                 True)
+            buf, sbuf = sentinel_merge(kern, bw, bl, ns_, per,
+                                       twin_w.shape[1])
+            (n0, e0), (n1, e1) = (diff(buf[1:-1], twin_w),
+                                  diff(sbuf[1:-1], twin_b))
+            n2 = (int((buf[0] != SENTINEL).sum() + (buf[-1] != SENTINEL).sum())
+                  + int(sbuf[0] != SENTINEL) + int(sbuf[-1] != SENTINEL))
+            errs[n] = max(errs[n], e0, e1)
+            report(f"{kk} onto sentinel rows {label}: {ns_} whole rows of "
+                   f"{twin_w.shape[1]} words + lengths ({tiles[0]} tiles, "
+                   f"{tiles[1]} tail tiles), {n2} values written outside",
+                   n0 + n1 + n2, max(e0, e1))
+            del buf, sbuf
         del checks
         # K2's stream bits (bits past each length are undefined on the
         # card), and K8's rows past K2's width are zero.
@@ -1099,6 +1145,8 @@ def main() -> int:
             lad[r] = dict(bw=bw, bl=bl, mw8=mw8, ml8=ml8, ns=ns, mps=mps,
                           w_cap=w_cap, sb=psb,
                           v2_words=rungs["v2"][0].shape[1])
+        else:
+            lad[sub] = dict(bw=bw, bl=bl, g=g)
         del pw, psw, rungs
     del c444
 
@@ -1273,8 +1321,8 @@ def main() -> int:
             c_, nl, r, luts)
         k3 = lambda: entropy_pack.seg_merge_mcu(a_, l_, ns, mps)  # noqa
         t2a = kernel_device_ms(k2, "block_pack_mcu_kernel<", reps=20)
-        t3a = kernel_device_ms(k3, "seg_merge_mcu_kernel(", reps=20)
-        t3b = kernel_device_ms(k3, "seg_merge_mcu_kernel(", reps=20)
+        t3a = kernel_device_ms(k3, K3_KEY, reps=20)
+        t3b = kernel_device_ms(k3, K3_KEY, reps=20)
         t2b = kernel_device_ms(k2, "block_pack_mcu_kernel<", reps=20)
         print(f"[time] K2 and K3 alone (profiler, 20 launches, in turns), "
               f"{sub} restart {what} ({c_.shape[0]} MCUs in {ns} segments): "
@@ -1285,25 +1333,35 @@ def main() -> int:
     line("K4 jt_stuff_segments on the restart-0 segment (K5's input)",
          time_ms(lambda: compact.compact_segments_stuffed_grouped(
              sw0, sb0, 0)))
-    # K7-K10 alone (profiler) on the ladder's 4:2:0 rows inputs, then K9
-    # and K10 on the restart-0 segment, where one thread block walks all
-    # 32,400 MCUs (194,400 blocks): wrapper (CUDA events) and kernel alone.
+    # K7-K10 alone (profiler, 20 launches, twice) on the ladder's 4:2:0
+    # rows inputs, K8 also on 4:4:4 rows (g = 3), then K9 and K10 on the
+    # restart-0 segment (32,400 MCUs, 194,400 blocks): wrapper (CUDA
+    # events) and kernel alone. K10 (split segments at both) also gives its
+    # scratch's memset, the one fill of its launch.
     oracle_keys = {"block_pack_blocks": "::block_pack_kernel(",
-                   "mcu_merge": "::mcu_merge_kernel(",
+                   "mcu_merge": K8_KEY,
                    "seg_merge_window": "::seg_merge_window_kernel(",
-                   "seg_merge_v1": "::seg_merge_v1_kernel("}
-    for n, key in oracle_keys.items():
-        print(f"[time] {n} kernel alone (profiler), oracle ladder 420 rows "
-              f"{w}x{h}: {kernel_device_ms(pairs[n][0], key)} ms  [{card}]")
-    one_seg = {
-        "seg_merge_window": lambda: entropy_oracles.seg_merge_window(
-            l0["mw8"], l0["ml8"], 1, l0["mps"], l0["v2_words"]),
-        "seg_merge_v1": lambda: entropy_pack.seg_merge(
-            l0["bw"], l0["bl"], 1, l0["mps"] * 6, l0["w_cap"])}
-    for n, fn in one_seg.items():
-        print(f"[time] {n} on the restart-0 segment: wrapper "
-              f"{time_ms(fn):.4f} ms, kernel alone (profiler) "
-              f"{kernel_device_ms(fn, oracle_keys[n])} ms  [{card}]")
+                   "seg_merge_v1": K10_KEY}
+    l4 = lad["444"]
+    oracle_runs = {n: ("420 rows", pairs[n][0]) for n in oracle_keys}
+    oracle_runs.update({
+        "mcu_merge 444": ("444 rows", lambda: entropy_pack.mcu_merge(
+            l4["bw"], l4["bl"], l4["g"])),
+        "seg_merge_window 0": ("420 restart 0",
+                               lambda: entropy_oracles.seg_merge_window(
+                                   l0["mw8"], l0["ml8"], 1, l0["mps"],
+                                   l0["v2_words"])),
+        "seg_merge_v1 0": ("420 restart 0", lambda: entropy_pack.seg_merge(
+            l0["bw"], l0["bl"], 1, l0["mps"] * 6, l0["w_cap"]))})
+    for n, (what, fn) in oracle_runs.items():
+        key = oracle_keys[n.split()[0]]
+        ka = kernel_device_ms(fn, key, reps=20)
+        kb = kernel_device_ms(fn, key, reps=20)
+        memset = (f", scratch memset {kernel_device_ms(fn, 'Memset')} ms"
+                  if n.startswith("seg_merge_v1") else "")
+        print(f"[time] {n.split()[0]} kernel alone (profiler), oracle ladder "
+              f"{what} {w}x{h}: {ka} / {kb} ms{memset}, wrapper "
+              f"{time_ms(fn):.4f} ms  [{card}]")
 
     # K6 on its three segment sets: wrapper with glue (CUDA events), the
     # kernel alone (profiler) and its bound (the valid bytes read once and
@@ -1637,20 +1695,46 @@ def main() -> int:
         "stuff_chunks": stuff_bound["stuff_chunks"],
         "compact": 2 * nbytes_rows + n_seg * 12,
     }
-    # K7-K10 on the ladder's 4:2:0 rows inputs: the valid block, MCU and
-    # segment words with their lengths, as K2's and K3's.
+    # K7-K10 on the ladder's inputs: the valid block or MCU words and their
+    # lengths in (K7: the coefficients, classes, DC differences and LUTs);
+    # out, the whole rows that jpegtpu's contract writes, zeros past each
+    # length included (K7 [blocks, 56], K8 [MCUs, chunks * 128], K9
+    # [segments, frames * 1024], K10 [segments, ceil(w_cap / 128) * 128]),
+    # and the lengths.
+    def valid_words(lens_):
+        return int(((lens_.to(torch.int64) + 31) // 32).sum())
+
+    def rows_out(n_rows, width):
+        return (n_rows * width + n_rows) * 4
+
     n_blocks = lr["bl"].numel()
-    valid_block_words = int(((lr["bl"].to(torch.int64) + 31) // 32).sum())
+    valid_block_words = valid_words(lr["bl"])
     bytes_moved.update({
-        "block_pack_blocks": ((blocks.numel() + cls.numel() + dcd.numel() +
-                               valid_block_words + n_blocks) * 4 +
-                              sum(t.numel() * 4 for t in luts)),
-        "mcu_merge": (valid_block_words + n_blocks + valid_mcu_words +
-                      n_mcu) * 4,
-        "seg_merge_window": (valid_mcu_words + n_mcu + valid_seg_words +
-                             n_seg) * 4,
-        "seg_merge_v1": (valid_block_words + n_blocks + valid_seg_words +
-                         n_seg) * 4})
+        "block_pack_blocks": ((blocks.numel() + cls.numel() + dcd.numel()) * 4
+                              + lut_bytes +
+                              rows_out(n_blocks, entropy_pack.BLOCK_WORDS)),
+        "mcu_merge": ((valid_block_words + n_blocks) * 4 +
+                      rows_out(n_mcu, lr["mw8"].shape[1])),
+        "seg_merge_window": ((valid_mcu_words + n_mcu) * 4 +
+                             rows_out(n_seg, lr["v2_words"])),
+        "seg_merge_v1": ((valid_block_words + n_blocks) * 4 +
+                         rows_out(n_seg, -(-lr["w_cap"] // 128) * 128))})
+    # The same count for K8 on 4:4:4 rows and K9 and K10 on the restart-0
+    # segment (not in the kernels line, which is at 4:2:0 rows).
+    more_bounds = {
+        "mcu_merge 444 rows": (
+            (valid_words(l4["bl"]) + l4["bl"].numel()) * 4 +
+            rows_out(l4["bl"].numel() // l4["g"],
+                     128 * entropy_oracles.default_chunks(l4["g"]))),
+        "seg_merge_window 420 restart 0": (
+            (valid_words(l0["ml8"]) + l0["ml8"].numel()) * 4 +
+            rows_out(1, l0["v2_words"])),
+        "seg_merge_v1 420 restart 0": (
+            (valid_words(l0["bl"]) + l0["bl"].numel()) * 4 +
+            rows_out(1, -(-l0["w_cap"] // 128) * 128))}
+    for n, by in more_bounds.items():
+        print(f"[bound] {n}: {by} bytes -> "
+              f"{by / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes)")
     flops = {}
     for sub in ("420", "422", "444", "444s"):
         t = tabs[sub]

@@ -34,8 +34,8 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("pixel_mma.cu", "block_pack.cu", "seg_merge.cu", "stuff.cu",
-           "compact.cu", "fused_px_bp.cu", "pixel_dma.cu", "mcu_merge.cu",
-           "seg_merge_window.cu", "seg_merge_v1.cu")
+           "compact.cu", "fused_px_bp.cu", "pixel_dma.cu",
+           "seg_merge_window.cu")
 # Headers the sources include; part of the library's hash.
 HEADERS = ("pixel_common.cuh", "block_pack.cuh", "merge_common.cuh",
            "lookback.cuh", "grid.cuh")

@@ -1,6 +1,5 @@
-// Bitstream placement shared by the merge kernels: seg_merge.cu (K3),
-// mcu_merge.cu (K8), seg_merge_window.cu (K9) and seg_merge_v1.cu (K10),
-// and the warp scans that block_pack.cuh uses too.
+// Bitstream placement of seg_merge_window.cu (K9), and the warp scans that
+// block_pack.cuh uses too.
 //
 // A stream is big-endian u32 words, MSB first, of `len` bits in a row of
 // `row_words` words; bits past len are ignored. To place it at bit offset

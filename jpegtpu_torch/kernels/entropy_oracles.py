@@ -5,13 +5,19 @@ jpegtpu keeps these earlier generations as the bit-exactness ladder its
 tests climb (block pack -> v1 -> v2 -> v3 -> the fused main path); the port
 keeps them with jpegtpu's signatures and output shapes:
 
-* ``mcu_merge`` joins g block streams into one MCU stream
-  (``csrc/mcu_merge.cu``, the port of ``_mcu_merge_kernel``, K8);
+* ``mcu_merge`` joins g block streams into one MCU stream (K8, the port
+  of ``_mcu_merge_kernel``);
 * ``seg_merge_v2`` is ``mcu_merge`` and then a serial append of each
   segment's MCU streams (``csrc/seg_merge_window.cu``, the port of
   ``_seg_merge_window_kernel``, K9);
 * ``seg_merge`` (v1) appends each segment's block streams one by one
-  (``csrc/seg_merge_v1.cu``, the port of ``_seg_merge_kernel``, K10).
+  (K10, the port of ``_seg_merge_kernel``).
+
+K8 and K10 are instances of K3's body (``csrc/seg_merge.cu``, launchers
+``jt_mcu_merge`` and ``jt_seg_merge_v1``): a "segment" of K8 is one MCU of
+g block streams, unpadded; K10's is a restart segment of block streams,
+1-padded. Both write whole output rows, zeros past the data, so their
+outputs need no fill.
 
 On CUDA tensors each wrapper launches its kernel; on CPU tensors it runs
 its plain twin (``*_plain``), the int64 scatter-add join of
@@ -30,20 +36,16 @@ import torch
 from jpegtpu_torch.entropy import assemble
 from jpegtpu_torch.kernels import _build, entropy_pack
 
-# K9's and K10's arguments: rows, lens, out, seg_bits, then n_seg, streams
-# per segment, words per row and words per segment.
-_ROWS_ARGS = [_build.PTR, _build.PTR, _build.PTR, _build.PTR,
-              _build.I64, _build.I64, _build.I32, _build.I64]
-
-MCU_MERGE = _build.Kernel("jt_mcu_merge", [
-    _build.PTR, _build.PTR, _build.PTR, _build.PTR,   # words, lens, out x2
-    _build.I64, _build.I32, _build.I32, _build.I32])  # n_mcu, g, row, mcu
-SEG_MERGE_WINDOW = _build.Kernel("jt_seg_merge_window", _ROWS_ARGS)
-SEG_MERGE_V1 = _build.Kernel("jt_seg_merge_v1", _ROWS_ARGS)
-
-# Shared memory one thread block can hold on the H100 (with the opt-in):
-# K8 stages one MCU row there.
-_SMEM_BYTES = 232448
+# K8's and K10's arguments: rows, lens, out, seg_bits, scratch, then n_seg,
+# streams per segment, words per row and words per segment.
+_MERGE_ARGS = [_build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
+               _build.I64, _build.I64, _build.I32, _build.I64]
+MCU_MERGE = _build.Kernel("jt_mcu_merge", _MERGE_ARGS)
+SEG_MERGE_V1 = _build.Kernel("jt_seg_merge_v1", _MERGE_ARGS)
+# K9's: the same without the scratch.
+SEG_MERGE_WINDOW = _build.Kernel("jt_seg_merge_window", [
+    _build.PTR, _build.PTR, _build.PTR, _build.PTR,
+    _build.I64, _build.I64, _build.I32, _build.I64])
 
 
 def default_chunks(g: int) -> int:
@@ -73,6 +75,41 @@ def mcu_merge_plain(words: torch.Tensor, lens: torch.Tensor, g: int,
     return assemble.to_i32_bits(mwords), mlens.to(torch.int32)
 
 
+def _check_widths(what: str, rows: torch.Tensor, width: int) -> None:
+    """Refuse, on either device, rows or an output row wider than the
+    merge body takes (K8, K10)."""
+    if rows.shape[-1] >= entropy_pack.SEG_MERGE_MAX_ROW or width >= 1 << 31:
+        raise ValueError(f"{what}: stream rows of {rows.shape[-1]} words "
+                         f"(must be under {entropy_pack.SEG_MERGE_MAX_ROW}) "
+                         f"into rows of {width} (must be under 2^31)")
+
+
+def _merge(kernel: _build.Kernel, rows: torch.Tensor, lens: torch.Tensor,
+           n_seg: int, per_seg: int, width: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8 or K10 on CUDA tensors: one launch of the segment-merge body,
+    n_seg segments of per_seg rows each into an [n_seg, width] output that
+    it writes whole (no fill), and the true bit counts."""
+    rows, lens = _int32_rows(rows, lens)
+    dev = rows.device
+    out = torch.empty((n_seg, width), dtype=torch.int32, device=dev)
+    seg_bits = torch.empty((n_seg,), dtype=torch.int32, device=dev)
+    if n_seg == 0:
+        return out, seg_bits
+    if per_seg * 32 * rows.shape[1] >= 1 << 31:
+        # The kernel writes -1 for a segment of 2^31 bits or more: read the
+        # sums back (a device sync) only where rows this long could reach it.
+        entropy_pack.segment_bits(lens, n_seg)
+    n_scratch = entropy_pack.seg_merge_scratch_words(n_seg, per_seg, True)
+    scratch = (torch.empty(n_scratch, dtype=torch.int64, device=dev)
+               if n_scratch else None)
+    kernel.launch(dev, rows.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                  seg_bits.data_ptr(),
+                  scratch.data_ptr() if n_scratch else None, n_seg, per_seg,
+                  rows.shape[1], width)
+    return out, seg_bits
+
+
 def mcu_merge(words: torch.Tensor, lens: torch.Tensor, g: int,
               chunks: int | None = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,27 +124,18 @@ def mcu_merge(words: torch.Tensor, lens: torch.Tensor, g: int,
     if g <= 0 or n % g:
         raise ValueError(f"mcu_merge: {n} blocks is not whole MCUs of {g}")
     width = 128 * (default_chunks(g) if chunks is None else chunks)
+    _check_widths("mcu_merge", words, width)
     if words.device.type == "cpu":
         return mcu_merge_plain(words, lens, g, width)
-    if width * 4 > _SMEM_BYTES:
-        raise ValueError(f"mcu_merge: an MCU row of {width} words does not "
-                         f"fit one thread block's shared memory")
-    words, lens = _int32_rows(words, lens)
-    nm = n // g
-    mwords = torch.empty((nm, width), dtype=torch.int32, device=words.device)
-    mlens = torch.empty((nm,), dtype=torch.int32, device=words.device)
-    MCU_MERGE.launch(words.device, words.data_ptr(), lens.data_ptr(),
-                     mwords.data_ptr(), mlens.data_ptr(), nm, g,
-                     words.shape[1], width)
-    return mwords, mlens
+    return _merge(MCU_MERGE, words, lens, n // g, g, width)
 
 
 def _append(kernel: _build.Kernel, plain, rows: torch.Tensor,
             lens: torch.Tensor, n_seg: int, per_seg: int, width: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K9 or K10 on CUDA tensors (one thread block per segment of per_seg
-    rows, into a zero-filled [n_seg, width] output), their twin `plain` on
-    CPU tensors."""
+    """K9 on CUDA tensors (one thread block per segment of per_seg rows,
+    into a zero-filled [n_seg, width] output), its twin `plain` on CPU
+    tensors."""
     if per_seg <= 0 or rows.shape[0] != n_seg * per_seg:
         raise ValueError(f"{rows.shape[0]} streams is not {n_seg} segments "
                          f"of {per_seg}")
@@ -163,5 +191,11 @@ def seg_merge(words: torch.Tensor, lens: torch.Tensor, n_seg: int, bps: int,
     [n_seg, rows*128] int32, true seg_bits [n_seg] int32) with rows =
     ceil(w_cap/128): segment s appends blocks s*bps .. s*bps+bps-1 one by
     one and 1-pads its last byte (jpegtpu's ``seg_merge``, v1)."""
-    return _append(SEG_MERGE_V1, seg_merge_plain, words, lens, n_seg, bps,
-                   -(-w_cap // 128) * 128)
+    if bps <= 0 or words.shape[0] != n_seg * bps:
+        raise ValueError(f"{words.shape[0]} streams is not {n_seg} segments "
+                         f"of {bps}")
+    width = -(-w_cap // 128) * 128
+    _check_widths("seg_merge", words, width)
+    if words.device.type == "cpu":
+        return seg_merge_plain(words, lens, n_seg, width)
+    return _merge(SEG_MERGE_V1, words, lens, n_seg, bps, width)

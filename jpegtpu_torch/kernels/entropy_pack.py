@@ -73,12 +73,20 @@ SEG_MERGE = _build.Kernel("jt_seg_merge_mcu", [
     _build.PTR,                                       # seg_bits, scratch
     _build.I64, _build.I64, _build.I64, _build.I32,   # nm, n_seg, mps, mcu_w
     _build.I64])                                      # seg_w
-# csrc/seg_merge.cu's tiles: a segment of more than SEG_MERGE_WHOLE MCUs is
-# cut into tiles of SEG_MERGE_TILE, which need a scratch of
-# SEG_MERGE_SCRATCH_HEAD int64 words (the ticket counter) and one a tile.
+# csrc/seg_merge.cu's tiles (K3, K8, K10): segments of up to SEG_MERGE_WHOLE
+# rows go whole, about SEG_MERGE_TARGET rows a tile (K3; K8 and K10, with
+# the zero tail, SEG_MERGE_WHOLE); a longer one is cut into tiles of
+# SEG_MERGE_TILE rows (K3; with the zero tail SEG_MERGE_ZERO_TILE), which
+# need a scratch of SEG_MERGE_SCRATCH_HEAD int64 words (the ticket counter)
+# and one a tile, and (zero tail) tail tiles of SEG_MERGE_TAIL words of its
+# row. Input rows must be narrower than SEG_MERGE_MAX_ROW words.
 SEG_MERGE_WHOLE = 512
+SEG_MERGE_TARGET = 128
 SEG_MERGE_TILE = 256
+SEG_MERGE_ZERO_TILE = 512
 SEG_MERGE_SCRATCH_HEAD = 16
+SEG_MERGE_TAIL = 16384
+SEG_MERGE_MAX_ROW = (1 << 31) // (32 * SEG_MERGE_WHOLE)
 
 
 def mcu_words(g: int) -> int:
@@ -355,13 +363,34 @@ def seg_merge_mcu_plain(mwords: torch.Tensor, mlens: torch.Tensor,
         mwords, mlens, n_seg, segment_words(n_seg, mps, mwords.shape[1]))
 
 
-def seg_merge_scratch_words(n_seg: int, mps: int) -> int:
-    """int64 words of the segment-merge kernel's scratch: none where a
-    segment fits a tile, else the ticket counter and its padding, then a
-    status word a tile."""
+def seg_merge_tiles(n_seg: int, mps: int, seg_words: int,
+                    zero_tail: bool) -> Tuple[int, int]:
+    """(data tiles, tail tiles) of one launch of the segment-merge body on
+    n_seg segments of mps rows into rows of seg_words words: tiles of
+    max(1, SEG_MERGE_TARGET // mps) whole segments (with the zero tail of
+    K8 and K10, max(1, SEG_MERGE_WHOLE // mps)), or, past SEG_MERGE_WHOLE
+    rows, ceil(mps / SEG_MERGE_TILE) tiles a segment (zero tail:
+    SEG_MERGE_ZERO_TILE) and, with the zero tail, ceil(seg_words /
+    SEG_MERGE_TAIL) tail tiles a segment."""
+    if mps <= SEG_MERGE_WHOLE:
+        target = SEG_MERGE_WHOLE if zero_tail else SEG_MERGE_TARGET
+        return -(-n_seg // max(1, target // mps)), 0
+    if not zero_tail:
+        return n_seg * -(-mps // SEG_MERGE_TILE), 0
+    return (n_seg * -(-mps // SEG_MERGE_ZERO_TILE),
+            n_seg * -(-seg_words // SEG_MERGE_TAIL))
+
+
+def seg_merge_scratch_words(n_seg: int, mps: int,
+                            zero_tail: bool = False) -> int:
+    """int64 words of the segment-merge kernel's scratch (K3; with
+    zero_tail, K8's and K10's): none where a segment fits a tile, else the
+    ticket counter and its padding, then a status word a data tile (tail
+    tiles have none)."""
     if mps <= SEG_MERGE_WHOLE:
         return 0
-    return SEG_MERGE_SCRATCH_HEAD + n_seg * -(-mps // SEG_MERGE_TILE)
+    return (SEG_MERGE_SCRATCH_HEAD +
+            seg_merge_tiles(n_seg, mps, 0, zero_tail)[0])
 
 
 def seg_merge_mcu(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,

@@ -954,11 +954,13 @@ def test_block_pack_kernel_matches_twin(dev, kind, n):
     assert torch.equal(l, l_p) and torch.equal(w, w_p)
 
 
-# (g, MCUs, chunks): g = 1 and 3, ragged thread blocks, budget-sized rows
-# that truncate, more blocks than a warp's lanes (200) and a row past 48 KB
-# of shared memory (1000 blocks: 52,096 words).
-MCU_CASES = [(1, 7, None), (3, 5, None), (6, 33, None), (3, 9, "budget"),
-             (6, 33, "budget"), (200, 3, None), (1000, 2, None)]
+# (g, MCUs, chunks): g = 1, 3, 4 and 6, ragged tiles, budget-sized rows
+# that truncate, more blocks than a warp's lanes (200), a row of 500
+# chunks (64,000 words) and g past a whole-segment tile (1000 blocks: split
+# tiles, a look-back and tail tiles).
+MCU_CASES = [(1, 7, None), (3, 5, None), (4, 300, None), (6, 33, None),
+             (3, 9, "budget"), (6, 33, "budget"), (200, 3, None),
+             (12, 3, 500), (1000, 2, None)]
 
 
 @pytest.mark.parametrize("g,n_mcu,chunks", MCU_CASES)
@@ -973,16 +975,19 @@ def test_mcu_merge_kernel_matches_twin(dev, g, n_mcu, chunks):
     width = mw.shape[1]
     mw_p, ml_p = entropy_oracles.mcu_merge_plain(words, lens, g, width)
     assert torch.equal(ml, ml_p) and torch.equal(mw, mw_p)
-    if chunks is not None:
+    if chunks is not None and width < 128 * entropy_oracles.default_chunks(g):
         assert bool((ml > 32 * width).any()), "pick truncating inputs"
 
 
 # (n_seg, streams per segment, w_cap): one stream per segment, restart
-# rows, a 32,400-MCU single segment (194,400 blocks for v1), and rows too
-# short for their segments.
+# rows, segments of 600 blocks for v1 (split tiles), a 32,400-MCU single
+# segment (194,400 blocks for v1), and rows too short for their segments
+# (whole and split).
 SEGMENT_CASES = {"one_per_segment": (50, 1, 64), "rows": (7, 45, None),
+                 "split_rows": (5, 100, None),
                  "single_32400_mcus": (1, 32400, None),
-                 "overflowing_w_cap": (5, 40, 300)}
+                 "overflowing_w_cap": (5, 40, 300),
+                 "overflowing_split": (3, 200, 500)}
 
 
 @pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
@@ -1057,9 +1062,70 @@ def test_oracle_rungs_equal_the_main_path(dev, mode, restart):
         assert _same_segments(rw[:, :n], rb, sw[:, :n], sb), rung
 
 
+def _sentinel_oracle(kernel, rows, lens, n_seg, per_seg, width):
+    """K8 or K10 launched directly into rows 1 .. n_seg of an [n_seg + 2,
+    width] buffer filled with SENTINEL (seg_bits likewise): (the buffer,
+    its seg_bits)."""
+    buf = torch.full((n_seg + 2, width), SENTINEL, dtype=torch.int32,
+                     device=rows.device)
+    sb = torch.full((n_seg + 2,), SENTINEL, dtype=torch.int32,
+                    device=rows.device)
+    n_scratch = entropy_pack.seg_merge_scratch_words(n_seg, per_seg, True)
+    scratch = torch.empty(max(n_scratch, 1), dtype=torch.int64,
+                          device=rows.device)
+    kernel.launch(rows.device, rows.data_ptr(), lens.data_ptr(),
+                  buf[1].data_ptr(), sb[1:].data_ptr(),
+                  scratch.data_ptr() if n_scratch else None, n_seg, per_seg,
+                  rows.shape[1], width)
+    return buf, sb
+
+
+# (instance, segments, streams a segment, output words): K8 at g 1, 3, 4,
+# 6 and 40 (past a warp's lanes), a budget row that truncates and g 600
+# (split); K10 on segments of 6 and 480 blocks (whole), 600 (split), one
+# segment of 194,400 (the restart-0 shape, 760 tiles and tail tiles) and
+# rows shorter than their data (whole and split).
+SENTINEL_MERGES = {
+    "K8_g1": ("K8", 50, 1, 128), "K8_g3": ("K8", 41, 3, 256),
+    "K8_g4": ("K8", 37, 4, 256), "K8_g6": ("K8", 33, 6, 384),
+    "K8_g40": ("K8", 5, 40, 2176), "K8_budget": ("K8", 33, 6, 128),
+    "K8_g600": ("K8", 2, 600, 31232),
+    "K10_6": ("K10", 40, 6, 384), "K10_480": ("K10", 5, 480, 27008),
+    "K10_600": ("K10", 4, 600, 33664),
+    "K10_194400": ("K10", 1, 194400, 10108928),
+    "K10_short_whole": ("K10", 5, 240, 256),
+    "K10_short_split": ("K10", 3, 1200, 512),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SENTINEL_MERGES))
+def test_merge_instances_write_whole_rows_only(dev, case):
+    """K8 and K10, instances of K3's body with the zero tail, against their
+    twins on whole rows, bit for bit, launched between sentinel rows: every
+    word of each output row written (zeros past the data), nothing outside
+    the output, the true bit counts."""
+    which, n_seg, per, width = SENTINEL_MERGES[case]
+    words, lens = _oracle_streams(n_seg * per, entropy_pack.BLOCK_WORDS,
+                                  n_seg + per, dev)
+    if which == "K8":
+        kernel = entropy_oracles.MCU_MERGE
+        want_w, want_b = entropy_oracles.mcu_merge_plain(words, lens, per,
+                                                         width)
+    else:
+        kernel = entropy_oracles.SEG_MERGE_V1
+        want_w, want_b = entropy_oracles.seg_merge_plain(words, lens, n_seg,
+                                                         width)
+    buf, sb = _sentinel_oracle(kernel, words, lens, n_seg, per, width)
+    assert torch.equal(sb[1:-1], want_b) and torch.equal(buf[1:-1], want_w)
+    assert bool((buf[0] == SENTINEL).all() and (buf[-1] == SENTINEL).all())
+    assert int(sb[0]) == int(sb[-1]) == SENTINEL
+    if case.endswith(("budget", "short_whole", "short_split")):
+        assert bool((want_b > 32 * width).any()), "pick truncating rows"
+
+
 def test_oracle_wrappers_raise_and_never_run_twins(dev, monkeypatch):
-    """A CUDA tensor beside a CPU one, a row too wide for shared memory, or
-    a launcher missing from the library raises; no twin runs."""
+    """A CUDA tensor beside a CPU one, an output row of 2^31 words, or a
+    launcher missing from the library raises; no twin runs."""
     for name in ("block_pack_plain",):
         monkeypatch.setattr(entropy_pack, name, None)
     for name in ("mcu_merge_plain", "seg_merge_window_plain",
@@ -1073,8 +1139,8 @@ def test_oracle_wrappers_raise_and_never_run_twins(dev, monkeypatch):
         entropy_oracles.mcu_merge(words, lens.cpu(), 6)
     with pytest.raises(ValueError, match="CUDA"):
         entropy_oracles.seg_merge(words, lens.cpu(), 2, 6, 1024)
-    with pytest.raises(ValueError, match="shared memory"):
-        entropy_oracles.mcu_merge(words, lens, 12, 500)
+    with pytest.raises(ValueError, match="under 2"):
+        entropy_oracles.mcu_merge(words, lens, 12, 1 << 24)
     k = entropy_oracles.SEG_MERGE_WINDOW
     monkeypatch.setattr(k, "_fn", None)
     monkeypatch.setattr(k, "symbol", "jt_no_such_launcher")

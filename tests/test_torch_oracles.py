@@ -24,6 +24,7 @@ from jpegtpu.kernels import entropy_oracles, entropy_pack
 from jpegtpu_torch.entropy import scan as t_scan
 from jpegtpu_torch.kernels import entropy_oracles as t_eo
 from jpegtpu_torch.kernels import entropy_pack as t_ep
+from test_torch_pack_merge import _k3_model
 
 G, N_SEG, MPS, W_CAP, BUDGET = 6, 2, 4, 2048, 384
 BPS = MPS * G
@@ -340,3 +341,121 @@ def test_oracle_wrappers_reject_bad_shapes():
         t_ep.seg_merge_v2(words, lens, 2, 6, 1024, 4)
     with pytest.raises(ValueError, match="whole MCUs"):
         t_ep.seg_merge_v3(words, lens, 2, 6, 1024, 4)
+
+
+def test_merge_wrappers_refuse_widths():
+    """K8 and K10 refuse, on either device, stream rows as wide as
+    SEG_MERGE_MAX_ROW words (a tile could pass 2^31 bits) and output rows
+    of 2^31 words; no twin runs."""
+    wide = torch.zeros((6, t_ep.SEG_MERGE_MAX_ROW), dtype=torch.int32)
+    lens = torch.zeros(6, dtype=torch.int32)
+    with pytest.raises(ValueError, match="must be under"):
+        t_eo.mcu_merge(wide, lens, 6)
+    with pytest.raises(ValueError, match="must be under"):
+        t_eo.seg_merge(wide, lens, 2, 3, 128)
+    words, lens = _streams(12, t_ep.BLOCK_WORDS, 3)
+    with pytest.raises(ValueError, match="must be under"):
+        t_eo.mcu_merge(words, lens, 6, 1 << 24)
+    with pytest.raises(ValueError, match="must be under"):
+        t_eo.seg_merge(words, lens, 2, 6, 1 << 31)
+
+
+# --- K8 and K10 as instances of csrc/seg_merge.cu's body --------------------
+
+def _brute_plan(n_seg, per, seg_w, zero_tail):
+    """(data tiles, tail tiles, scratch words) of one launch, counted by
+    naming the tile of every row and every output word: a whole-segment
+    tile holds max(1, TARGET // per) consecutive segments (max(1, WHOLE //
+    per) with the zero tail); a split tile TILE (zero tail: ZERO_TILE)
+    consecutive rows of one segment; a tail tile TAIL consecutive words of
+    one split segment's row."""
+    split = per > t_ep.SEG_MERGE_WHOLE
+    s, i = np.divmod(np.arange(n_seg * per), per)
+    if split:
+        tile = t_ep.SEG_MERGE_ZERO_TILE if zero_tail else t_ep.SEG_MERGE_TILE
+        data = len(np.unique(s * n_seg * per + i // tile))
+    else:
+        rows = t_ep.SEG_MERGE_WHOLE if zero_tail else t_ep.SEG_MERGE_TARGET
+        data = len(np.unique(s // max(1, rows // per)))
+    tails = 0
+    if split and zero_tail:
+        q = np.arange(seg_w) // t_ep.SEG_MERGE_TAIL
+        tails = n_seg * len(np.unique(q))
+    scratch = t_ep.SEG_MERGE_SCRATCH_HEAD + data if split else 0
+    return data, tails, scratch
+
+
+# (segments, rows a segment, output words, zero tail): K8 at g 1, 6 and
+# 600 (split), K10 on 40-, 600- and 1,500-block segments, K3 (no tail) on
+# split segments.
+PLANS = [(50, 1, 128, True), (1100, 1, 128, True), (1000, 6, 384, True),
+         (1000, 6, 384, False), (2, 600, 31232, True), (7, 40, 2304, True),
+         (4, 600, 33664, True), (2, 1500, 84096, True),
+         (3, 1500, 84096, False)]
+
+
+@pytest.mark.parametrize("n_seg,per,seg_w,zero_tail", PLANS)
+def test_merge_plan_matches_brute_force(n_seg, per, seg_w, zero_tail):
+    got = (*t_ep.seg_merge_tiles(n_seg, per, seg_w, zero_tail),
+           t_ep.seg_merge_scratch_words(n_seg, per, zero_tail))
+    assert got == _brute_plan(n_seg, per, seg_w, zero_tail)
+
+
+@pytest.mark.parametrize("n_seg,per,seg_w,want", [
+    (32400, 6, 384, (382, 0, 0)),           # K8, 4K 4:2:0 rows
+    (129600, 3, 256, (763, 0, 0)),          # K8, 4K 4:4:4 rows
+    (135, 1440, 75008, (405, 675, 421)),    # K10, 4K 4:2:0 rows
+    (1, 194400, 10108928, (380, 617, 396)),  # K10, 4K 4:2:0 restart 0
+])
+def test_merge_plan_at_4k(n_seg, per, seg_w, want):
+    """The 4K ladder's K8 and K10 launches: whole-segment tiles of up to
+    512 blocks for K8; for K10 split tiles of 512 blocks, tail tiles of
+    16,384 words, and a status word a data tile."""
+    assert (*t_ep.seg_merge_tiles(n_seg, per, seg_w, True),
+            t_ep.seg_merge_scratch_words(n_seg, per, True)) == want
+
+
+# (segments, rows a segment, output words, whole, target, split, tail,
+# pad): K8 (no pad) on whole tiles of 2 MCUs, rows that truncate, and g
+# past `whole` (split tiles and 3 tail tiles an MCU); K10 (pad) on whole
+# tiles, split segments with tail tiles, and split rows too short.
+ZERO_TAIL_CASES = {
+    "K8_whole": (7, 2, 8, 4, 7, 3, 5, False),
+    "K8_truncating": (7, 2, 2, 4, 7, 3, 5, False),
+    "K8_split": (3, 10, 8, 4, 7, 3, 3, False),
+    "K10_whole": (5, 2, 6, 4, 7, 3, 4, True),
+    "K10_split": (3, 10, 20, 4, 7, 3, 6, True),
+    "K10_split_short": (3, 10, 3, 4, 7, 3, 2, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ZERO_TAIL_CASES))
+def test_zero_tail_instances_write_each_word_once(name):
+    """The kernel model with the zero tail: every word of every output row
+    written exactly once (data, pad or zero), equal to the twin's whole
+    rows (K8: ``mcu_merge_plain``, K10: ``seg_merge_plain``), the true bit
+    counts, and the tile counts of ``seg_merge_tiles``' rule."""
+    n_seg, per, seg_w, whole, target, split, tail, pad = \
+        ZERO_TAIL_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    words = rng.integers(0, 1 << 32, (n_seg * per, 5),
+                         dtype=np.uint64).astype(np.uint32)
+    lens = rng.integers(0, 161, n_seg * per).astype(np.int32)
+    lens[::4] = 0
+    lens[1::5] = 160
+    out, writes, bits, tiles = _k3_model(words, lens, n_seg, per, seg_w,
+                                         whole, target, split, pad, tail)
+    tw, tl = torch.from_numpy(words.view(np.int32)), torch.from_numpy(lens)
+    want_w, want_b = (t_eo.seg_merge_plain(tw, tl, n_seg, seg_w) if pad else
+                      t_eo.mcu_merge_plain(tw, tl, per, seg_w))
+    assert [bits[s] for s in range(n_seg)] == want_b.tolist()
+    assert set(writes) == {(s, q) for s in range(n_seg)
+                           for q in range(seg_w)}
+    assert set(writes.values()) == {1}
+    want = _u32(want_w)
+    assert all(out[s, q] == want[s, q] for (s, q) in out), name
+    if name.endswith(("truncating", "short")):
+        assert (want_b.numpy() > 32 * seg_w).any(), "pick truncating rows"
+    n_split = -(-per // split) if per > whole else 0
+    assert tiles == ((n_seg * n_split, n_seg * -(-seg_w // tail))
+                     if n_split else (-(-n_seg // max(1, whole // per)), 0))

@@ -273,15 +273,21 @@ def test_put_run_splits_a_run_over_three_words():
 
 # --- K3's tiles, in numpy.
 
-def _k3_model(words, lens, n_seg, mps, seg_w, whole, target, split_mcus):
+def _k3_model(words, lens, n_seg, mps, seg_w, whole, target, split_mcus,
+              pad=True, tail=None):
     """csrc/seg_merge.cu in numpy with its tile constants as arguments:
-    (segment words {(s, q): word}, writes per (s, q), seg_bits). A segment
-    of more than `whole` MCUs is cut into tiles of split_mcus, each taking
-    its carry from the tiles before it in its segment; else a tile is
-    max(1, target // mps) whole segments. Each tile owns the words whose
-    first bit it holds and builds each from the MCU holding that bit and
-    the ones after it, by the kernel's funnel shift, reading only words
-    that hold data (asserted)."""
+    (segment words {(s, q): word}, writes per (s, q), seg_bits, (data
+    tiles, tail tiles)). A segment of more than `whole` MCUs is cut into
+    tiles of split_mcus, each taking its carry from the tiles before it in
+    its segment; else a tile is max(1, target // mps) whole segments
+    (max(1, whole // mps) with the zero tail). Each
+    tile owns the words whose first bit it holds and builds each from the
+    MCU holding that bit and the ones after it, by the kernel's funnel
+    shift, reading only words that hold data (asserted), 1-padding the
+    segment's last byte when pad. With tail (K8, K10: the zero tail) a
+    whole-segment tile also zeroes its segments' words past their data, and
+    after every data tile each split segment gets ceil(seg_w / tail) tail
+    tiles, each zeroing its share of [ceil(seg_bits / 32), seg_w)."""
     nm = len(lens)
 
     def length(m):
@@ -301,7 +307,7 @@ def _k3_model(words, lens, n_seg, mps, seg_w, whole, target, split_mcus):
 
     split = mps > whole
     tps = -(-mps // split_mcus) if split else 1
-    spt = max(1, target // mps)
+    spt = max(1, (whole if tail else target) // mps)
     n_tiles = n_seg * tps if split else -(-n_seg // spt)
     out, writes, seg_bits = {}, Counter(), {}
     for t in range(n_tiles):
@@ -349,12 +355,23 @@ def _k3_model(words, lens, n_seg, mps, seg_w, whole, target, split_mcus):
                     if m >= (seg + 1) * mps:
                         break
                     mlen = tl[m - first] if m - first < n else length(m)
-                if filled < 32:
+                if pad and filled < 32:
                     padb = (8 - filled % 8) % 8
                     acc |= ((1 << padb) - 1) << (32 - filled - padb)
                 out[seg, q_lo + qi] = acc
                 writes[seg, q_lo + qi] += 1
-    return out, writes, seg_bits
+            if tail and not split:
+                for q in range(nw, seg_w):
+                    out[seg, q] = 0
+                    writes[seg, q] += 1
+    tails = -(-seg_w // tail) if tail and split else 0
+    for u in range(n_seg * tails):
+        s, j = divmod(u, tails)
+        for q in range(max(-(-seg_bits[s] // 32), j * tail),
+                       min((j + 1) * tail, seg_w)):
+            out[s, q] = 0
+            writes[s, q] += 1
+    return out, writes, seg_bits, (n_tiles, n_seg * tails)
 
 
 def _streams(n, row_words, seed):
@@ -392,8 +409,8 @@ def test_k3_tiles_write_each_word_once(name):
     nm, n_seg, mps, seg_w, whole, target, split = K3_CASES[name]
     words, lens = _streams(nm, 5, sum(map(ord, name)))
     width = seg_w or t_ep.segment_words(n_seg, mps, 5)
-    out, writes, bits = _k3_model(words, lens, n_seg, mps, width, whole,
-                                  target, split)
+    out, writes, bits, _ = _k3_model(words, lens, n_seg, mps, width, whole,
+                                     target, split)
     tw, tl = t_ep.pad_segments(torch.from_numpy(words.view(np.int32)),
                                torch.from_numpy(lens), n_seg, mps)
     want_w, want_b = t_ep.merge_segments_plain(tw, tl, n_seg, width)
@@ -407,12 +424,15 @@ def test_k3_tiles_write_each_word_once(name):
 
 
 def test_kernel_constants_match_the_wrappers():
-    """csrc/seg_merge.cu's tile sizes and scratch head, and
+    """csrc/seg_merge.cu's tile sizes, scratch head and tail share, and
     csrc/block_pack.cu's largest MCU, are the wrappers'."""
     src = (_build.CSRC / "seg_merge.cu").read_text()
     for name, value in (("kMaxTile", t_ep.SEG_MERGE_WHOLE),
+                        ("kTargetMcus", t_ep.SEG_MERGE_TARGET),
                         ("kSplitMcus", t_ep.SEG_MERGE_TILE),
-                        ("kScratchHead", t_ep.SEG_MERGE_SCRATCH_HEAD)):
+                        ("kZeroSplit", t_ep.SEG_MERGE_ZERO_TILE),
+                        ("kScratchHead", t_ep.SEG_MERGE_SCRATCH_HEAD),
+                        ("kTailWords", t_ep.SEG_MERGE_TAIL)):
         assert int(re.search(name + r" = (\d+)", src).group(1)) == value
     bp = (_build.CSRC / "block_pack.cu").read_text()
     assert int(re.search(r"kMaxG = (\d+)", bp).group(1)) == \
