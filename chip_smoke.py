@@ -87,10 +87,12 @@ PROFILED = (("420", "rows", {}), ("420", 0, {}), ("420", 7, {}),
             ("420", "rows", {"pixel_path": "dma"}),
             ("420", "rows", {"pixel_dc": True}))
 TIMING_REPS = 20
-# Profiler keys of the segment-merge body's instances <kPad, kZeroTail>.
-K3_KEY = "seg_merge_mcu_kernel<true, false>"
-K10_KEY = "seg_merge_mcu_kernel<true, true>"
-K8_KEY = "seg_merge_mcu_kernel<false, true>"
+# Profiler keys of the segment-merge body's instances <kPad, kZeroTail,
+# kSplit>.
+K3_KEY = "seg_merge_mcu_kernel<true, false, 256>"
+K10_KEY = "seg_merge_mcu_kernel<true, true, 512>"
+K8_KEY = "seg_merge_mcu_kernel<false, true, 512>"
+K9_KEY = "seg_merge_mcu_kernel<true, true, 256>"
 # Launches of each stuffing wrapper on each stuffing input in phase 3.
 STUFF_REPEATS = 20
 # Qualities at which phase 3 holds K1 and K12 (every geometry), K13 and K14
@@ -369,9 +371,12 @@ def main() -> int:
                 else klib.jt_pixel_dma_smem())
         print(f"[build] {kernel}: {props}; dynamic shared memory {smem} "
               f"bytes a block")
-    # The segment-merge body's instances, by <kPad, kZeroTail>: K3 <1, 0>,
-    # K10 <1, 1>, K8 <0, 1>.
-    for kernel, props in ptxas_entries(build_log, ("seg_merge_mcu_kernel",)):
+    # The segment-merge body's instances, by <kPad, kZeroTail, kSplit>: K3
+    # <1, 0, 256>, K10 <1, 1, 512>, K8 <0, 1, 512>, K9 <1, 1, 256>; K2's
+    # instances <kDerive, kG> and K7.
+    for kernel, props in ptxas_entries(build_log, ("seg_merge_mcu_kernel",
+                                                   "block_pack_mcu_kernel",
+                                                   "block_pack_kernel")):
         print(f"[build] {kernel}: {props}")
 
     # 3. Each kernel against its plain twin, at the paths' shapes.
@@ -859,8 +864,7 @@ def main() -> int:
                ("mcu_merge", entropy_oracles.MCU_MERGE, "seg_merge.cu",
                 "jpegtpu/kernels/entropy_oracles.py:33"),
                ("seg_merge_window", entropy_oracles.SEG_MERGE_WINDOW,
-                "seg_merge_window.cu",
-                "jpegtpu/kernels/entropy_oracles.py:125"),
+                "seg_merge.cu", "jpegtpu/kernels/entropy_oracles.py:125"),
                ("seg_merge_v1", entropy_oracles.SEG_MERGE_V1,
                 "seg_merge.cu", "jpegtpu/kernels/entropy_oracles.py:266"),
                ("fused_px_bp", fused_pipeline.FUSED_PX_BP, "fused_px_bp.cu",
@@ -1029,15 +1033,16 @@ def main() -> int:
     # twin on the inputs it had in that run, K8 of K7 against K2's MCU
     # streams, and each rung's segments against the encode path's K2 -> K3
     # segments: the same bits, and the same words through the padded byte.
-    def sentinel_merge(kern, rows, lens, ns_, per, width):
-        """K8 or K10 launched directly into rows 1 .. ns_ of an [ns_ + 2,
+    def sentinel_merge(kern, rows, lens, ns_, per, width, split_rows=None):
+        """K8, K9 or K10 launched directly into rows 1 .. ns_ of an [ns_ + 2,
         width] buffer filled with SENTINEL (the bit counts likewise), not
         counted as a launch: (the buffer, its bit counts)."""
         buf = torch.full((ns_ + 2, width), SENTINEL, dtype=torch.int32,
                          device=dev)
         sbuf = torch.full((ns_ + 2,), SENTINEL, dtype=torch.int32,
                           device=dev)
-        n_scr = entropy_pack.seg_merge_scratch_words(ns_, per, True)
+        n_scr = entropy_pack.seg_merge_scratch_words(ns_, per, True, width,
+                                                     split_rows)
         scr = torch.empty(max(n_scr, 1), dtype=torch.int64, device=dev)
         kern.launch(dev, rows.data_ptr(), lens.data_ptr(), buf[1].data_ptr(),
                     sbuf[1:].data_ptr(), scr.data_ptr() if n_scr else None,
@@ -1105,18 +1110,21 @@ def main() -> int:
             (n0, e0), (n1, e1) = diff(got[0], twin[0]), diff(got[1], twin[1])
             errs[n] = max(errs[n], e0, e1)
             report(what, n0 + n1, max(e0, e1))
-        # K8 and K10 (instances of K3's body with the zero tail) once more
-        # between sentinel rows: every word of each output row written,
-        # nothing outside the output.
-        for n, kk, kern, ns_, per in (
-                ("mcu_merge", "K8", entropy_oracles.MCU_MERGE, nm, g),
-                ("seg_merge_v1", "K10", entropy_oracles.SEG_MERGE_V1, ns,
-                 mps * g)):
+        # K8, K9 and K10 (instances of K3's body with the zero tail) once
+        # more between sentinel rows: every word of each output row
+        # written, nothing outside the output.
+        for n, kk, kern, rows_, lens_, ns_, per, split_rows in (
+                ("mcu_merge", "K8", entropy_oracles.MCU_MERGE, bw, bl, nm, g,
+                 None),
+                ("seg_merge_window", "K9", entropy_oracles.SEG_MERGE_WINDOW,
+                 mw8, ml8, ns, mps, entropy_pack.SEG_MERGE_TILE),
+                ("seg_merge_v1", "K10", entropy_oracles.SEG_MERGE_V1, bw, bl,
+                 ns, mps * g, None)):
             twin_w, twin_b = checks[n][2]
             tiles = entropy_pack.seg_merge_tiles(ns_, per, twin_w.shape[1],
-                                                 True)
-            buf, sbuf = sentinel_merge(kern, bw, bl, ns_, per,
-                                       twin_w.shape[1])
+                                                 True, split_rows)
+            buf, sbuf = sentinel_merge(kern, rows_, lens_, ns_, per,
+                                       twin_w.shape[1], split_rows)
             (n0, e0), (n1, e1) = (diff(buf[1:-1], twin_w),
                                   diff(sbuf[1:-1], twin_b))
             n2 = (int((buf[0] != SENTINEL).sum() + (buf[-1] != SENTINEL).sum())
@@ -1141,12 +1149,12 @@ def main() -> int:
             report(f"ladder {rung} rung {label} against K2 -> K3: seg_bits + "
                    f"each segment's first ceil(seg_bits / 8) bytes, {ns} "
                    f"segments", n0, e0)
+        run_ = dict(bw=bw, bl=bl, mw8=mw8, ml8=ml8, ns=ns, mps=mps, g=g,
+                    w_cap=w_cap, sb=psb, v2_words=rungs["v2"][0].shape[1])
         if sub == "420":
-            lad[r] = dict(bw=bw, bl=bl, mw8=mw8, ml8=ml8, ns=ns, mps=mps,
-                          w_cap=w_cap, sb=psb,
-                          v2_words=rungs["v2"][0].shape[1])
+            lad[r] = run_
         else:
-            lad[sub] = dict(bw=bw, bl=bl, g=g)
+            lad[sub] = dict(run_, c=c.reshape(-1, 64), k=k, d=d)
         del pw, psw, rungs
     del c444
 
@@ -1334,19 +1342,25 @@ def main() -> int:
          time_ms(lambda: compact.compact_segments_stuffed_grouped(
              sw0, sb0, 0)))
     # K7-K10 alone (profiler, 20 launches, twice) on the ladder's 4:2:0
-    # rows inputs, K8 also on 4:4:4 rows (g = 3), then K9 and K10 on the
-    # restart-0 segment (32,400 MCUs, 194,400 blocks): wrapper (CUDA
-    # events) and kernel alone. K10 (split segments at both) also gives its
-    # scratch's memset, the one fill of its launch.
+    # rows inputs, K7, K8 and K9 also on 4:4:4 rows (g = 3), then K9 and
+    # K10 on the restart-0 segment (32,400 MCUs, 194,400 blocks): wrapper
+    # (CUDA events) and kernel alone. K9 and K10 also give their scratch's
+    # memset, the one fill of a launch (none where no segment is split).
     oracle_keys = {"block_pack_blocks": "::block_pack_kernel(",
                    "mcu_merge": K8_KEY,
-                   "seg_merge_window": "::seg_merge_window_kernel(",
+                   "seg_merge_window": K9_KEY,
                    "seg_merge_v1": K10_KEY}
     l4 = lad["444"]
     oracle_runs = {n: ("420 rows", pairs[n][0]) for n in oracle_keys}
     oracle_runs.update({
+        "block_pack_blocks 444": ("444 rows", lambda: entropy_pack.block_pack(
+            l4["c"], l4["k"], l4["d"])),
         "mcu_merge 444": ("444 rows", lambda: entropy_pack.mcu_merge(
             l4["bw"], l4["bl"], l4["g"])),
+        "seg_merge_window 444": ("444 rows",
+                                 lambda: entropy_oracles.seg_merge_window(
+                                     l4["mw8"], l4["ml8"], l4["ns"],
+                                     l4["mps"], l4["v2_words"])),
         "seg_merge_window 0": ("420 restart 0",
                                lambda: entropy_oracles.seg_merge_window(
                                    l0["mw8"], l0["ml8"], 1, l0["mps"],
@@ -1358,7 +1372,8 @@ def main() -> int:
         ka = kernel_device_ms(fn, key, reps=20)
         kb = kernel_device_ms(fn, key, reps=20)
         memset = (f", scratch memset {kernel_device_ms(fn, 'Memset')} ms"
-                  if n.startswith("seg_merge_v1") else "")
+                  if n.startswith(("seg_merge_v1", "seg_merge_window"))
+                  else "")
         print(f"[time] {n.split()[0]} kernel alone (profiler), oracle ladder "
               f"{what} {w}x{h}: {ka} / {kb} ms{memset}, wrapper "
               f"{time_ms(fn):.4f} ms  [{card}]")
@@ -1719,13 +1734,19 @@ def main() -> int:
                              rows_out(n_seg, lr["v2_words"])),
         "seg_merge_v1": ((valid_block_words + n_blocks) * 4 +
                          rows_out(n_seg, -(-lr["w_cap"] // 128) * 128))})
-    # The same count for K8 on 4:4:4 rows and K9 and K10 on the restart-0
-    # segment (not in the kernels line, which is at 4:2:0 rows).
+    # The same count for K7, K8 and K9 on 4:4:4 rows and K9 and K10 on the
+    # restart-0 segment (not in the kernels line, which is at 4:2:0 rows).
     more_bounds = {
+        "block_pack_blocks 444 rows": (
+            (l4["c"].numel() + l4["k"].numel() + l4["d"].numel()) * 4 +
+            lut_bytes + rows_out(l4["bl"].numel(), entropy_pack.BLOCK_WORDS)),
         "mcu_merge 444 rows": (
             (valid_words(l4["bl"]) + l4["bl"].numel()) * 4 +
             rows_out(l4["bl"].numel() // l4["g"],
                      128 * entropy_oracles.default_chunks(l4["g"]))),
+        "seg_merge_window 444 rows": (
+            (valid_words(l4["ml8"]) + l4["ml8"].numel()) * 4 +
+            rows_out(l4["ns"], l4["v2_words"])),
         "seg_merge_window 420 restart 0": (
             (valid_words(l0["ml8"]) + l0["ml8"].numel()) * 4 +
             rows_out(1, l0["v2_words"])),

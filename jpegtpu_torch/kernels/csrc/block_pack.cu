@@ -53,14 +53,23 @@
 //
 // K7: replaces jpegtpu/kernels/entropy_pack.py:_block_pack_kernel (called
 // from block_pack), the oracle tier's per-block pack. The TPU kernel packs
-// two blocks per 128-lane row of a 1024-row tile; here one warp packs one
-// block from bit 0 with jt::pack_block (block_pack.cuh) into a zeroed 56-word
-// row in shared memory, then writes the whole row (zero past the length).
-// The warps of a grid of a few thread blocks per SM stride over the blocks,
-// so each thread block loads the Huffman LUTs once.
+// two blocks per 128-lane row of a 1024-row tile. Here K2's steps run on
+// blocks that are streams of their own: a warp takes kPackPer consecutive
+// blocks and loads them all at once (lane l slots 2l and 2l+1 of each, one
+// 8-byte load), symbolizes and scans them as independent instruction
+// streams (jt::pair_run, jt::warp_exclusive_scan), and puts each at bit 0 of
+// its own 56-word row in shared memory (jt::put_run). The group's rows are
+// consecutive in shared memory and in the output, so the warp then writes
+// them as one run of 16-byte stores, 14 a row: a quad that holds valid
+// words from shared memory (zeroed behind it, so the rows are zero again),
+// the rest as zeros. Every output word is written once; nothing is filled
+// before. A persistent grid: each thread block loads the packed LUTs once,
+// and its warps stride over the groups. The warp's last group may hold
+// fewer blocks.
 //
-// Bound: the bytes, 256 of coefficients read per block and 224 written (the
-// 56-word row, zeros included).
+// Bound: the bytes, 256 of coefficients read per block and 224 written
+// (the 56-word row, zeros included), against the instruction issue of
+// symbolizing 64 slots a block, as in K2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -215,9 +224,13 @@ int launch_mcu(const int32_t* coeffs, const int32_t* cls,
   }
 }
 
-constexpr int kBlockWords = 56;     // BLOCK_WORDS: a block's stream row
-constexpr int kPackWarps = 8;       // K7: warps (blocks in flight) per block
+constexpr int kBlockWords = 56;      // BLOCK_WORDS: a block's stream row
+constexpr int kRowQuads = kBlockWords / 4;
+constexpr int kPackWarps = 8;        // K7: warps a thread block
+constexpr int kPackPer = 4;          // K7: blocks a warp loads at once
 
+// K7: warp w of block k packs blocks kPackPer * (k * kPackWarps + w) on,
+// then every gridDim.x * kPackWarps-th group of kPackPer after it.
 __global__ void __launch_bounds__(kPackWarps * 32)
 block_pack_kernel(const int32_t* __restrict__ coeffs,
                   const int32_t* __restrict__ cls,
@@ -228,30 +241,88 @@ block_pack_kernel(const int32_t* __restrict__ coeffs,
                   const int32_t* __restrict__ ac_lens,
                   int32_t* __restrict__ words, int32_t* __restrict__ lens,
                   long long n_blocks) {
-  __shared__ int lut[jt::kLutInts];
-  __shared__ uint32_t rows[kPackWarps][kBlockWords];
-  jt::load_luts(lut, dc_codes, dc_lens, ac_codes, ac_lens);
+  __shared__ int lut[jt::kPackedLut];
+  __shared__ __align__(16) uint32_t rows[kPackWarps][kPackPer * kBlockWords];
+  jt::load_packed_luts(lut, dc_codes, dc_lens, ac_codes, ac_lens);
+  for (int t = threadIdx.x; t < kPackWarps * kPackPer * kBlockWords;
+       t += kPackWarps * 32)
+    (&rows[0][0])[t] = 0;
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   uint32_t* buf = rows[warp];
+  const long long n_groups = (n_blocks + kPackPer - 1) / kPackPer;
   const long long stride = (long long)gridDim.x * kPackWarps;
-  for (long long blk = (long long)blockIdx.x * kPackWarps + warp;
-       blk < n_blocks; blk += stride) {   // warp-uniform: whole warps loop
-    for (int j = lane; j < kBlockWords; j += 32) buf[j] = 0;
+  for (long long gi = (long long)blockIdx.x * kPackWarps + warp;
+       gi < n_groups; gi += stride) {     // warp-uniform: whole warps loop
+    const long long b0 = gi * kPackPer;
+    const int nb = (int)min((long long)kPackPer, n_blocks - b0);
+    // Load the group's blocks at once (class and DC difference the same on
+    // every lane).
+    int a[kPackPer], b[kPackPer], bcls[kPackPer], dcd[kPackPer];
+#pragma unroll
+    for (int u = 0; u < kPackPer; ++u) {
+      a[u] = b[u] = bcls[u] = dcd[u] = 0;
+      if (u < nb) {
+        const int2 pair =
+            reinterpret_cast<const int2*>(coeffs + (b0 + u) * 64)[lane];
+        a[u] = pair.x;
+        b[u] = pair.y;
+        bcls[u] = cls[b0 + u];
+        dcd[u] = dcdiff[b0 + u];
+      }
+    }
+    // Symbolize and scan each, as independent streams.
+    unsigned long long run[kPackPer];
+    int where[kPackPer], total[kPackPer];  // in-block offset << 8 | length
+#pragma unroll
+    for (int u = 0; u < kPackPer; ++u) {
+      run[u] = 0;
+      where[u] = total[u] = 0;
+      if (u < nb) {
+        int len;
+        jt::pair_run(a[u], b[u], bcls[u], dcd[u], lut, lane, &run[u], &len);
+        const int ex = jt::warp_exclusive_scan(len, lane);
+        where[u] = (ex << 8) | len;
+        total[u] = __shfl_sync(0xffffffffu, ex + len, 31);
+      }
+    }
+    // Each at bit 0 of its own row.
+#pragma unroll
+    for (int u = 0; u < kPackPer; ++u) {
+      const int len = where[u] & 255;
+      if (len) jt::put_run(buf + u * kBlockWords, where[u] >> 8, run[u], len);
+    }
     __syncwarp();
-    const int32_t* c = coeffs + blk * 64;
-    const int len = jt::pack_block(c[lane], c[lane + 32], cls[blk],
-                                   dcdiff[blk], lut, buf, 0, lane);
-    __syncwarp();
-    int32_t* dst = words + blk * kBlockWords;
-    for (int j = lane; j < kBlockWords; j += 32) dst[j] = (int32_t)buf[j];
-    if (lane == 0) lens[blk] = len;
-    __syncwarp();                     // the row is read before it is zeroed
+    // The nb rows out whole: quad q is quad j of row r; it holds valid
+    // words if 4j < ceil(bits / 32).
+    uint4* src = reinterpret_cast<uint4*>(buf);
+    uint4* dst = reinterpret_cast<uint4*>(words + b0 * kBlockWords);
+    for (int q = lane; q < nb * kRowQuads; q += 32) {
+      const int r = q / kRowQuads, j = q - r * kRowQuads;
+      int bits = 0;
+#pragma unroll
+      for (int u = 0; u < kPackPer; ++u)
+        if (r == u) bits = total[u];
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (4 * j < (bits + 31) >> 5) {
+        v = src[q];
+        src[q] = make_uint4(0u, 0u, 0u, 0u);
+      }
+      dst[q] = v;
+    }
+    int my_bits = 0;
+#pragma unroll
+    for (int u = 0; u < kPackPer; ++u)
+      if (lane == u) my_bits = total[u];
+    if (lane < nb) lens[b0 + lane] = my_bits;
+    __syncwarp();                   // the rows are zero before the next group
   }
 }
 
 }  // namespace
 
+// K7: blocks [n_blocks, 64] (8-byte aligned), their classes and DC
+// differences -> whole rows [n_blocks, 56] (16-byte aligned) and lengths.
 extern "C" int jt_block_pack(const int32_t* coeffs, const int32_t* cls,
                              const int32_t* dcdiff, const int32_t* dc_codes,
                              const int32_t* dc_lens, const int32_t* ac_codes,
@@ -259,17 +330,21 @@ extern "C" int jt_block_pack(const int32_t* coeffs, const int32_t* cls,
                              int32_t* lens, long long n_blocks,
                              cudaStream_t stream) {
   if (n_blocks <= 0) return 0;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long blocks = (n_blocks + kPackWarps - 1) / kPackWarps;
-  if (blocks > 8LL * sms) blocks = 8LL * sms;   // 8 x 256 threads fill an SM
-  block_pack_kernel<<<(unsigned)blocks, kPackWarps * 32, 0, stream>>>(
+  if ((reinterpret_cast<uintptr_t>(coeffs) & 7) ||
+      (reinterpret_cast<uintptr_t>(words) & 15))
+    return (int)cudaErrorMisalignedAddress;
+  int resident = 0;
+  const int err = jt::resident_blocks(block_pack_kernel, kPackWarps * 32, 0,
+                                      &resident);
+  if (err) return err;
+  const long long n_groups = (n_blocks + kPackPer - 1) / kPackPer;
+  const long long blocks = (n_groups + kPackWarps - 1) / kPackWarps;
+  const long long grid = blocks < resident ? blocks : resident;
+  block_pack_kernel<<<(unsigned)grid, kPackWarps * 32, 0, stream>>>(
       coeffs, cls, dcdiff, dc_codes, dc_lens, ac_codes, ac_lens, words, lens,
       n_blocks);
   return (int)cudaGetLastError();
 }
-
 
 // K2, jpegtpu's signature: class and DC difference of every block given.
 extern "C" int jt_block_pack_mcu(const int32_t* coeffs, const int32_t* cls,

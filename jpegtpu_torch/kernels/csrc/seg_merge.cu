@@ -1,11 +1,13 @@
 // Segment-merge kernel body: rows of bitstreams -> one bitstream per
-// segment of consecutive rows, and each segment's bit count. Three
-// instances, by two compile-time options:
+// segment of consecutive rows, and each segment's bit count. Four
+// instances, by three compile-time options:
 //
 // - kPad: 1-pad each segment's last byte (ITU-T T.81 F.1.2.3).
 // - kZeroTail: write every word of each output row, the words past the
 //   segment's data as zeros, so the output needs no fill; without it the
 //   words past ceil(seg_bits / 32) are never written.
+// - kSplit: the rows of a tile of a split segment (it also gives each
+//   instance a symbol of its own).
 //
 // - jt_seg_merge_mcu (K3; replaces jpegtpu/kernels/entropy_pack.py:
 //   _seg_merge_v3_kernel, called from seg_merge_mcu): MCU streams into
@@ -13,6 +15,10 @@
 // - jt_seg_merge_v1 (K10; replaces jpegtpu/kernels/entropy_oracles.py:
 //   _seg_merge_kernel, called from seg_merge): 56-word block streams into
 //   restart segments; kPad and kZeroTail.
+// - jt_seg_merge_window (K9; replaces jpegtpu/kernels/entropy_oracles.py:
+//   _seg_merge_window_kernel, called from seg_merge_v2 after mcu_merge):
+//   K8's MCU streams into restart segments; kPad and kZeroTail, like K10,
+//   but split tiles of kSplitMcus rows (an MCU row holds g blocks' words).
 // - jt_mcu_merge (K8; replaces jpegtpu/kernels/entropy_oracles.py:
 //   _mcu_merge_kernel, called from mcu_merge): 56-word block streams into
 //   MCUs of g blocks, a "segment" each; kZeroTail, no pad. A row that
@@ -20,7 +26,7 @@
 //   length stays the full sum.
 //
 // The TPU kernels advance segments through a register window flushed in
-// 1024-word frames after XLA glue has scanned the lengths (K3), append a
+// 1024-word frames after XLA glue has scanned the lengths (K3, K9), append a
 // segment's blocks one by one into a zeroed VMEM accumulator (K10), or
 // place the g blocks of 256 MCUs by lane gathers into zeroed chunks (K8):
 // their grids run in order on one core. Here no glue runs: the kernel
@@ -30,13 +36,16 @@
 // store: no atomics, no read of the output.
 //
 // - A tile is a run of rows in one thread block. A segment of up to
-//   kMaxTile rows is never split: a tile holds whole segments, about
+//   kMaxTile rows is not split: a tile holds whole segments, about
 //   kTargetMcus rows of them (with the zero tail up to kMaxTile, so that a
 //   tile's scan is paid for the most stores), and needs nothing from
 //   another tile. A longer segment (restart 0, long intervals, K10's
-//   1,440-block rows at 4K) is cut into tiles of kSplitMcus rows (with the
-//   zero tail kZeroSplit), and each takes its bit offset in the
-//   segment, its carry, from the tiles before it by a decoupled look-back
+//   1,440-block rows at 4K), and with the zero tail a segment whose output
+//   row is wider than kTailWords (K9's 76,800-word rows at 4K: one block
+//   would write 300 KB while the tail tiles spread it over the grid; such
+//   a segment of up to kMaxTile rows is one data tile), is cut into tiles
+//   of kSplit rows, and each takes its bit offset in the segment, its
+//   carry, from the tiles before it by a decoupled look-back
 //   (lookback.cuh; a tile that starts a segment is its own inclusive
 //   prefix, so no look-back crosses a segment start). The split tiles are
 //   taken by ticket (atomicAdd), so a tile only waits on tiles that running
@@ -79,7 +88,7 @@
 // kernel takes about 8x that bound (PERF.md): a tile's scan, each word's
 // nine-step search and the look-back are latency that about five words a
 // thread do not hide. Two words a thread with their searches interleaved
-// spilled registers and was slower. K8 and K10: the same reads, and the
+// spilled registers and was slower. K8, K9 and K10: the same reads, and the
 // whole output rows written (zeros included), which dominate; there each
 // tile's scan and its data words' searches and loads are latency between
 // the bursts of stores, so the card writes the rows at about half the
@@ -103,15 +112,8 @@ constexpr long long kScratchHead = 16;  // = entropy_pack.SEG_MERGE_SCRATCH_HEAD
 constexpr long long kTailWords = 16384;  // = entropy_pack.SEG_MERGE_TAIL
 // Rows wider than this could give a tile 2^31 bits: refused.
 constexpr long long kMaxRowWords = (1LL << 31) / (32 * kMaxTile);
-static_assert(kMaxTile < kThreads && kSplitMcus <= kMaxTile &&
-                  kZeroSplit <= kMaxTile && kWarps <= 32,
+static_assert(kMaxTile < kThreads && kWarps <= 32,
               "one row of a tile a thread; one warp scans the warps' sums");
-
-// The rows of an instance's split tiles.
-template <bool kZeroTail>
-__host__ __device__ constexpr int split_rows() {
-  return kZeroTail ? kZeroSplit : kSplitMcus;
-}
 
 // Block-wide exclusive scan of x (two __syncthreads); the sum in *total.
 // wtot holds kWarps + 1 values.
@@ -199,7 +201,7 @@ __device__ __forceinline__ uint32_t segment_word(
 // Bit positions inside a tile are tile-relative int32: a tile holds at most
 // kMaxTile rows narrower than kMaxRowWords. Tickets n_tiles .. n_tiles +
 // n_seg * tails - 1 are tail tiles (kZeroTail, split segments only).
-template <bool kPad, bool kZeroTail>
+template <bool kPad, bool kZeroTail, int kSplit>
 __global__ void __launch_bounds__(kThreads, 2)
 seg_merge_mcu_kernel(const uint32_t* __restrict__ mwords,
                      const int32_t* __restrict__ mlens,
@@ -257,9 +259,10 @@ seg_merge_mcu_kernel(const uint32_t* __restrict__ mwords,
     const long long c = split ? t - s0 * tps : 0;
     const int np = split ? 1 : (int)min(spt, n_seg - s0);
     const int per = (int)min(mps, (long long)kMaxTile);   // rows a segment
-    constexpr int kSplit = split_rows<kZeroTail>();
-    const long long first = s0 * mps + c * kSplit;        // its first row
-    const int n = split ? (int)min((long long)kSplit, mps - c * kSplit)
+    // A segment split for its row's width alone is one tile.
+    const long long rows_t = kZeroTail && mps <= kMaxTile ? mps : kSplit;
+    const long long first = s0 * mps + c * rows_t;        // its first row
+    const int n = split ? (int)min(rows_t, mps - c * rows_t)
                         : np * per;
 
     // 1. The lengths and their tile-relative offsets.
@@ -354,10 +357,11 @@ seg_merge_mcu_kernel(const uint32_t* __restrict__ mwords,
 // ignored, never read past its valid words) and lengths [nm] -> n_seg
 // segments of mps rows (row nm and up are zero-length pads; nm <= n_seg *
 // mps) in rows of seg_words words, and seg_bits [n_seg]. scratch:
-// kScratchHead + n_seg * ceil(mps / split_rows) int64 words when mps >
-// kMaxTile, else unused (may be null). With the zero tail, seg_words must
-// be a multiple of 4 and out 16-byte aligned.
-template <bool kPad, bool kZeroTail>
+// kScratchHead + a word a data tile where segments are split (mps >
+// kMaxTile: ceil(mps / kSplit) tiles a segment; with the zero tail also
+// seg_words > kTailWords: one), else unused (may be null). With the zero
+// tail, seg_words must be a multiple of 4 and out 16-byte aligned.
+template <bool kPad, bool kZeroTail, int kSplit>
 int launch(const int32_t* mwords, const int32_t* mlens, int32_t* out,
            int32_t* seg_bits, unsigned long long* scratch, long long nm,
            long long n_seg, long long mps, int mcu_words, long long seg_words,
@@ -369,13 +373,16 @@ int launch(const int32_t* mwords, const int32_t* mlens, int32_t* out,
     return (int)cudaErrorInvalidValue;
   if (kZeroTail && reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorMisalignedAddress;
-  const bool split = mps > kMaxTile;
+  static_assert(kSplit > 0 && kSplit <= kMaxTile, "a split tile's rows");
+  const bool split = mps > kMaxTile || (kZeroTail && seg_words > kTailWords);
   // Whole rows (the zero tail) are mostly stores: fill a tile's kMaxTile
   // rows, so its scan and searches are paid once for the most stores.
   const long long target = kZeroTail ? kMaxTile : kTargetMcus;
   const long long spt = split ? 0 : target / mps > 1 ? target / mps : 1;
-  constexpr long long kSplit = split_rows<kZeroTail>();
-  const long long tps = split ? (mps + kSplit - 1) / kSplit : 1;
+  // A segment of up to kMaxTile rows split for its row's width (the zero
+  // tail) is one data tile, so its data takes no look-back.
+  const long long tps = split && mps > kMaxTile ? (mps + kSplit - 1) / kSplit
+                                                : 1;
   const long long n_tiles = split ? n_seg * tps : (n_seg + spt - 1) / spt;
   const long long tails =
       kZeroTail && split ? (seg_words + kTailWords - 1) / kTailWords : 0;
@@ -388,13 +395,13 @@ int launch(const int32_t* mwords, const int32_t* mlens, int32_t* out,
     if (err != cudaSuccess) return (int)err;
   }
   int resident = 0;
-  const int e = jt::resident_blocks(seg_merge_mcu_kernel<kPad, kZeroTail>,
-                                    kThreads, 0, &resident);
+  const int e = jt::resident_blocks(
+      seg_merge_mcu_kernel<kPad, kZeroTail, kSplit>, kThreads, 0, &resident);
   if (e) return e;
   const long long total = n_tiles + n_seg * tails;
   const long long grid = total < resident ? total : resident;
-  seg_merge_mcu_kernel<kPad, kZeroTail><<<(unsigned)grid, kThreads, 0,
-                                          stream>>>(
+  seg_merge_mcu_kernel<kPad, kZeroTail, kSplit>
+      <<<(unsigned)grid, kThreads, 0, stream>>>(
       reinterpret_cast<const uint32_t*>(mwords), mlens,
       reinterpret_cast<uint32_t*>(out), seg_bits, scratch, nm, n_seg, mps,
       mcu_words, seg_words, spt, tps, n_tiles, tails);
@@ -411,8 +418,9 @@ extern "C" int jt_seg_merge_mcu(const int32_t* mwords, const int32_t* mlens,
                                 unsigned long long* scratch, long long nm,
                                 long long n_seg, long long mps, int mcu_words,
                                 long long seg_words, cudaStream_t stream) {
-  return launch<true, false>(mwords, mlens, out, seg_bits, scratch, nm, n_seg,
-                             mps, mcu_words, seg_words, stream);
+  return launch<true, false, kSplitMcus>(mwords, mlens, out, seg_bits,
+                                          scratch, nm, n_seg, mps, mcu_words,
+                                          seg_words, stream);
 }
 
 // K10: block streams [n_seg * bps, block_words] and lengths -> n_seg
@@ -423,8 +431,9 @@ extern "C" int jt_seg_merge_v1(const int32_t* words, const int32_t* lens,
                                unsigned long long* scratch, long long n_seg,
                                long long bps, int block_words,
                                long long seg_words, cudaStream_t stream) {
-  return launch<true, true>(words, lens, out, seg_bits, scratch, n_seg * bps,
-                            n_seg, bps, block_words, seg_words, stream);
+  return launch<true, true, kZeroSplit>(words, lens, out, seg_bits, scratch,
+                                        n_seg * bps, n_seg, bps, block_words,
+                                        seg_words, stream);
 }
 
 // K8: block streams [n_mcu * g, block_words] and lengths -> n_mcu MCU
@@ -436,6 +445,22 @@ extern "C" int jt_mcu_merge(const int32_t* words, const int32_t* lens,
                             unsigned long long* scratch, long long n_mcu,
                             long long g, int block_words, long long mcu_words,
                             cudaStream_t stream) {
-  return launch<false, true>(words, lens, mwords, mlens, scratch, n_mcu * g,
-                             n_mcu, g, block_words, mcu_words, stream);
+  return launch<false, true, kZeroSplit>(words, lens, mwords, mlens,
+                                         scratch, n_mcu * g, n_mcu, g,
+                                         block_words, mcu_words, stream);
+}
+
+// K9: MCU streams [n_seg * mps, mcu_words] and lengths -> n_seg segments of
+// mps MCUs, 1-padded, in whole rows of seg_words words (zero past the
+// data), and seg_bits [n_seg].
+extern "C" int jt_seg_merge_window(const int32_t* mwords,
+                                   const int32_t* mlens, int32_t* out,
+                                   int32_t* seg_bits,
+                                   unsigned long long* scratch,
+                                   long long n_seg, long long mps,
+                                   int mcu_words, long long seg_words,
+                                   cudaStream_t stream) {
+  return launch<true, true, kSplitMcus>(mwords, mlens, out, seg_bits,
+                                        scratch, n_seg * mps, n_seg, mps,
+                                        mcu_words, seg_words, stream);
 }

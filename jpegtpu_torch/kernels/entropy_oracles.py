@@ -7,17 +7,17 @@ keeps them with jpegtpu's signatures and output shapes:
 
 * ``mcu_merge`` joins g block streams into one MCU stream (K8, the port
   of ``_mcu_merge_kernel``);
-* ``seg_merge_v2`` is ``mcu_merge`` and then a serial append of each
-  segment's MCU streams (``csrc/seg_merge_window.cu``, the port of
-  ``_seg_merge_window_kernel``, K9);
-* ``seg_merge`` (v1) appends each segment's block streams one by one
-  (K10, the port of ``_seg_merge_kernel``).
+* ``seg_merge_v2`` is ``mcu_merge`` and then the join of each segment's
+  MCU streams (K9, the port of ``_seg_merge_window_kernel``);
+* ``seg_merge`` (v1) joins each segment's block streams (K10, the port of
+  ``_seg_merge_kernel``).
 
-K8 and K10 are instances of K3's body (``csrc/seg_merge.cu``, launchers
-``jt_mcu_merge`` and ``jt_seg_merge_v1``): a "segment" of K8 is one MCU of
-g block streams, unpadded; K10's is a restart segment of block streams,
-1-padded. Both write whole output rows, zeros past the data, so their
-outputs need no fill.
+K8, K9 and K10 are instances of K3's body (``csrc/seg_merge.cu``,
+launchers ``jt_mcu_merge``, ``jt_seg_merge_window`` and
+``jt_seg_merge_v1``): a "segment" of K8 is one MCU of g block streams,
+unpadded; K9's is a restart segment of MCU streams and K10's one of block
+streams, 1-padded. All three write whole output rows, zeros past the data,
+so their outputs need no fill.
 
 On CUDA tensors each wrapper launches its kernel; on CPU tensors it runs
 its plain twin (``*_plain``), the int64 scatter-add join of
@@ -36,16 +36,13 @@ import torch
 from jpegtpu_torch.entropy import assemble
 from jpegtpu_torch.kernels import _build, entropy_pack
 
-# K8's and K10's arguments: rows, lens, out, seg_bits, scratch, then n_seg,
-# streams per segment, words per row and words per segment.
+# K8's, K9's and K10's arguments: rows, lens, out, seg_bits, scratch, then
+# n_seg, streams per segment, words per row and words per segment.
 _MERGE_ARGS = [_build.PTR, _build.PTR, _build.PTR, _build.PTR, _build.PTR,
                _build.I64, _build.I64, _build.I32, _build.I64]
 MCU_MERGE = _build.Kernel("jt_mcu_merge", _MERGE_ARGS)
 SEG_MERGE_V1 = _build.Kernel("jt_seg_merge_v1", _MERGE_ARGS)
-# K9's: the same without the scratch.
-SEG_MERGE_WINDOW = _build.Kernel("jt_seg_merge_window", [
-    _build.PTR, _build.PTR, _build.PTR, _build.PTR,
-    _build.I64, _build.I64, _build.I32, _build.I64])
+SEG_MERGE_WINDOW = _build.Kernel("jt_seg_merge_window", _MERGE_ARGS)
 
 
 def default_chunks(g: int) -> int:
@@ -77,19 +74,23 @@ def mcu_merge_plain(words: torch.Tensor, lens: torch.Tensor, g: int,
 
 def _check_widths(what: str, rows: torch.Tensor, width: int) -> None:
     """Refuse, on either device, rows or an output row wider than the
-    merge body takes (K8, K10)."""
-    if rows.shape[-1] >= entropy_pack.SEG_MERGE_MAX_ROW or width >= 1 << 31:
+    merge body takes (K8, K9, K10), or an output row that is not whole
+    16-byte quads (it writes whole rows in 16-byte stores)."""
+    if (rows.shape[-1] >= entropy_pack.SEG_MERGE_MAX_ROW or width >= 1 << 31
+            or width % 4):
         raise ValueError(f"{what}: stream rows of {rows.shape[-1]} words "
                          f"(must be under {entropy_pack.SEG_MERGE_MAX_ROW}) "
-                         f"into rows of {width} (must be under 2^31)")
+                         f"into rows of {width} (must be under 2^31 and a "
+                         f"multiple of 4)")
 
 
 def _merge(kernel: _build.Kernel, rows: torch.Tensor, lens: torch.Tensor,
-           n_seg: int, per_seg: int, width: int
+           n_seg: int, per_seg: int, width: int, split_rows: int | None = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K8 or K10 on CUDA tensors: one launch of the segment-merge body,
+    """K8, K9 or K10 on CUDA tensors: one launch of the segment-merge body,
     n_seg segments of per_seg rows each into an [n_seg, width] output that
-    it writes whole (no fill), and the true bit counts."""
+    it writes whole (no fill), and the true bit counts. split_rows: the
+    instance's split tiles (``entropy_pack.seg_merge_tiles``)."""
     rows, lens = _int32_rows(rows, lens)
     dev = rows.device
     out = torch.empty((n_seg, width), dtype=torch.int32, device=dev)
@@ -100,7 +101,8 @@ def _merge(kernel: _build.Kernel, rows: torch.Tensor, lens: torch.Tensor,
         # The kernel writes -1 for a segment of 2^31 bits or more: read the
         # sums back (a device sync) only where rows this long could reach it.
         entropy_pack.segment_bits(lens, n_seg)
-    n_scratch = entropy_pack.seg_merge_scratch_words(n_seg, per_seg, True)
+    n_scratch = entropy_pack.seg_merge_scratch_words(
+        n_seg, per_seg, True, width, split_rows)
     scratch = (torch.empty(n_scratch, dtype=torch.int64, device=dev)
                if n_scratch else None)
     kernel.launch(dev, rows.data_ptr(), lens.data_ptr(), out.data_ptr(),
@@ -130,30 +132,6 @@ def mcu_merge(words: torch.Tensor, lens: torch.Tensor, g: int,
     return _merge(MCU_MERGE, words, lens, n // g, g, width)
 
 
-def _append(kernel: _build.Kernel, plain, rows: torch.Tensor,
-            lens: torch.Tensor, n_seg: int, per_seg: int, width: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K9 on CUDA tensors (one thread block per segment of per_seg rows,
-    into a zero-filled [n_seg, width] output), its twin `plain` on CPU
-    tensors."""
-    if per_seg <= 0 or rows.shape[0] != n_seg * per_seg:
-        raise ValueError(f"{rows.shape[0]} streams is not {n_seg} segments "
-                         f"of {per_seg}")
-    if rows.device.type == "cpu":
-        return plain(rows, lens, n_seg, width)
-    rows, lens = _int32_rows(rows, lens)
-    if per_seg * 32 * rows.shape[1] >= 1 << 31:
-        # The kernel counts a segment's bits in int32: read the sums back
-        # (a device sync) only where rows this long could reach 2^31.
-        entropy_pack.segment_bits(lens, n_seg)
-    out = torch.zeros((n_seg, width), dtype=torch.int32, device=rows.device)
-    seg_bits = torch.empty((n_seg,), dtype=torch.int32, device=rows.device)
-    kernel.launch(rows.device, rows.data_ptr(), lens.data_ptr(),
-                  out.data_ptr(), seg_bits.data_ptr(), n_seg, per_seg,
-                  rows.shape[1], width)
-    return out, seg_bits
-
-
 # The plain twins of K9 and K10: (rows, lens, n_seg, width) -> the rows
 # joined into n_seg segments of `width` words, 1-padded.
 seg_merge_window_plain = seg_merge_plain = entropy_pack.merge_segments_plain
@@ -163,10 +141,17 @@ def seg_merge_window(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
                      mps: int, width: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MCU streams [n_seg*mps, W] int32 (+ lengths) -> (segment streams
-    [n_seg, width] int32, true seg_bits [n_seg] int32): segment s appends
-    MCUs s*mps .. s*mps+mps-1 and 1-pads its last byte (K9)."""
-    return _append(SEG_MERGE_WINDOW, seg_merge_window_plain, mwords, mlens,
-                   n_seg, mps, width)
+    [n_seg, width] int32, true seg_bits [n_seg] int32): segment s joins
+    MCUs s*mps .. s*mps+mps-1 and 1-pads its last byte (K9). width must be
+    a multiple of 4 (jpegtpu's rows are frames*1024 words)."""
+    if mps <= 0 or mwords.shape[0] != n_seg * mps:
+        raise ValueError(f"{mwords.shape[0]} streams is not {n_seg} segments "
+                         f"of {mps}")
+    _check_widths("seg_merge_window", mwords, width)
+    if mwords.device.type == "cpu":
+        return seg_merge_window_plain(mwords, mlens, n_seg, width)
+    return _merge(SEG_MERGE_WINDOW, mwords, mlens, n_seg, mps, width,
+                  entropy_pack.SEG_MERGE_TILE)
 
 
 def seg_merge_v2(words: torch.Tensor, lens: torch.Tensor, n_seg: int,

@@ -18,7 +18,9 @@ of them.
 
 The oracle tier that jpegtpu's tests climb starts here too: ``block_pack``
 packs one stream per block (``csrc/block_pack.cu`` ``jt_block_pack``, the
-port of ``_block_pack_kernel``) and ``seg_merge_v3`` merges block streams
+port of ``_block_pack_kernel``: K2's pair-run steps on several blocks a
+warp, each at bit 0 of its own row, whole rows written) and
+``seg_merge_v3`` merges block streams
 into MCUs (``entropy_oracles.mcu_merge``) and then into segments
 (``seg_merge_mcu``). ``mcu_merge``, ``seg_merge`` and ``seg_merge_v2`` are
 re-exported from ``entropy_oracles``, as jpegtpu re-exports them.
@@ -73,13 +75,16 @@ SEG_MERGE = _build.Kernel("jt_seg_merge_mcu", [
     _build.PTR,                                       # seg_bits, scratch
     _build.I64, _build.I64, _build.I64, _build.I32,   # nm, n_seg, mps, mcu_w
     _build.I64])                                      # seg_w
-# csrc/seg_merge.cu's tiles (K3, K8, K10): segments of up to SEG_MERGE_WHOLE
-# rows go whole, about SEG_MERGE_TARGET rows a tile (K3; K8 and K10, with
-# the zero tail, SEG_MERGE_WHOLE); a longer one is cut into tiles of
-# SEG_MERGE_TILE rows (K3; with the zero tail SEG_MERGE_ZERO_TILE), which
-# need a scratch of SEG_MERGE_SCRATCH_HEAD int64 words (the ticket counter)
-# and one a tile, and (zero tail) tail tiles of SEG_MERGE_TAIL words of its
-# row. Input rows must be narrower than SEG_MERGE_MAX_ROW words.
+# csrc/seg_merge.cu's tiles (K3, K8, K9, K10): segments of up to
+# SEG_MERGE_WHOLE rows go whole, about SEG_MERGE_TARGET rows a tile (K3; K8,
+# K9 and K10, with the zero tail, SEG_MERGE_WHOLE); a longer one, and with
+# the zero tail one whose output row is wider than SEG_MERGE_TAIL words (one
+# tile where it has no more than SEG_MERGE_WHOLE rows), is cut into tiles
+# of SEG_MERGE_TILE rows (K3 and K9; K8 and K10 SEG_MERGE_ZERO_TILE), which
+# need a scratch of SEG_MERGE_SCRATCH_HEAD
+# int64 words (the ticket counter) and one a tile, and (zero tail) tail
+# tiles of SEG_MERGE_TAIL words of its row. Input rows must be narrower
+# than SEG_MERGE_MAX_ROW words.
 SEG_MERGE_WHOLE = 512
 SEG_MERGE_TARGET = 128
 SEG_MERGE_TILE = 256
@@ -161,6 +166,9 @@ def block_pack(coeffs: torch.Tensor, cls: torch.Tensor, dcdiff: torch.Tensor
     n = coeffs.shape[0]
     args = [t.to(torch.int32).contiguous()
             for t in (coeffs, cls.reshape(-1), dcdiff.reshape(-1))]
+    if args[0].data_ptr() % 8:
+        # The kernel loads two slots at once: an 8-byte aligned copy.
+        args[0] = args[0].clone()
     _build.check_cuda(*args, *luts)
     if (coeffs.shape != (n, 64) or args[1].numel() != n
             or args[2].numel() != n):
@@ -363,34 +371,45 @@ def seg_merge_mcu_plain(mwords: torch.Tensor, mlens: torch.Tensor,
         mwords, mlens, n_seg, segment_words(n_seg, mps, mwords.shape[1]))
 
 
+def _seg_merge_split(mps: int, seg_words: int, zero_tail: bool) -> bool:
+    """Whether the segment-merge body cuts each segment into tiles."""
+    return mps > SEG_MERGE_WHOLE or (zero_tail and seg_words > SEG_MERGE_TAIL)
+
+
 def seg_merge_tiles(n_seg: int, mps: int, seg_words: int,
-                    zero_tail: bool) -> Tuple[int, int]:
+                    zero_tail: bool, split_rows: int | None = None
+                    ) -> Tuple[int, int]:
     """(data tiles, tail tiles) of one launch of the segment-merge body on
     n_seg segments of mps rows into rows of seg_words words: tiles of
-    max(1, SEG_MERGE_TARGET // mps) whole segments (with the zero tail of
-    K8 and K10, max(1, SEG_MERGE_WHOLE // mps)), or, past SEG_MERGE_WHOLE
-    rows, ceil(mps / SEG_MERGE_TILE) tiles a segment (zero tail:
-    SEG_MERGE_ZERO_TILE) and, with the zero tail, ceil(seg_words /
-    SEG_MERGE_TAIL) tail tiles a segment."""
-    if mps <= SEG_MERGE_WHOLE:
+    max(1, SEG_MERGE_TARGET // mps) whole segments (with the zero tail
+    max(1, SEG_MERGE_WHOLE // mps)), or, past SEG_MERGE_WHOLE rows,
+    ceil(mps / split_rows) tiles a segment, and (zero tail) past
+    SEG_MERGE_TAIL words a row one tile a segment that has fewer rows; with
+    the zero tail then ceil(seg_words / SEG_MERGE_TAIL) tail tiles a
+    segment. split_rows is the instance's: SEG_MERGE_TILE for K3
+    and K9, SEG_MERGE_ZERO_TILE for K8 and K10 (the default by
+    zero_tail)."""
+    if not _seg_merge_split(mps, seg_words, zero_tail):
         target = SEG_MERGE_WHOLE if zero_tail else SEG_MERGE_TARGET
         return -(-n_seg // max(1, target // mps)), 0
-    if not zero_tail:
-        return n_seg * -(-mps // SEG_MERGE_TILE), 0
-    return (n_seg * -(-mps // SEG_MERGE_ZERO_TILE),
-            n_seg * -(-seg_words // SEG_MERGE_TAIL))
+    if split_rows is None:
+        split_rows = SEG_MERGE_ZERO_TILE if zero_tail else SEG_MERGE_TILE
+    tps = -(-mps // split_rows) if mps > SEG_MERGE_WHOLE else 1
+    tails = -(-seg_words // SEG_MERGE_TAIL) if zero_tail else 0
+    return n_seg * tps, n_seg * tails
 
 
-def seg_merge_scratch_words(n_seg: int, mps: int,
-                            zero_tail: bool = False) -> int:
+def seg_merge_scratch_words(n_seg: int, mps: int, zero_tail: bool = False,
+                            seg_words: int = 0,
+                            split_rows: int | None = None) -> int:
     """int64 words of the segment-merge kernel's scratch (K3; with
-    zero_tail, K8's and K10's): none where a segment fits a tile, else the
-    ticket counter and its padding, then a status word a data tile (tail
-    tiles have none)."""
-    if mps <= SEG_MERGE_WHOLE:
+    zero_tail, K8's, K9's and K10's, whose rows are seg_words words): none
+    where no segment is split, else the ticket counter and its padding,
+    then a status word a data tile (tail tiles have none)."""
+    if not _seg_merge_split(mps, seg_words, zero_tail):
         return 0
     return (SEG_MERGE_SCRATCH_HEAD +
-            seg_merge_tiles(n_seg, mps, 0, zero_tail)[0])
+            seg_merge_tiles(n_seg, mps, seg_words, zero_tail, split_rows)[0])
 
 
 def seg_merge_mcu(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,

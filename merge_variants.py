@@ -1,17 +1,19 @@
-"""Design runs of K8 and K10, the zero-tail instances of the segment-merge
-body (``jpegtpu_torch/kernels/csrc/seg_merge.cu``), on the card: build the
-body as it is and variants of it that each change one thing, then time
-K8 (``jt_mcu_merge``) at 3840x2160 q90 4:2:0 and 4:4:4 rows and K10
-(``jt_seg_merge_v1``) at 4:2:0 rows and restart 0 on the oracle ladder's
-block streams (K7's), each variant alone (profiler, 20 launches, the
-kernel and its scratch memset apart), in turns, first forward then
-backward. Each variant is held to the plain twins first, whole rows and
-lengths, bit for bit (the timing-only variants must disagree).
+"""Design runs of K8, K9 and K10, the zero-tail instances of the
+segment-merge body (``jpegtpu_torch/kernels/csrc/seg_merge.cu``), on the
+card: build the body as it is and variants of it that each change one
+thing, then time K8 (``jt_mcu_merge``) at 3840x2160 q90 4:2:0 and 4:4:4
+rows, K10 (``jt_seg_merge_v1``) at 4:2:0 rows and restart 0 on the oracle
+ladder's block streams (K7's), and K9 (``jt_seg_merge_window``) at 4:2:0
+rows, 4:4:4 rows and 4:2:0 restart 0 on K8's MCU streams, each variant
+alone (profiler, 20 launches, the kernel and its scratch memset apart), in
+turns, first forward then backward. Each variant is held to the plain
+twins first, whole rows and lengths, bit for bit (the timing-only variants
+must disagree).
 
     python3 merge_variants.py [variant ...]
     python3 merge_variants.py --wrappers
 
-With --wrappers it builds no variant and times K8 and K10 through the
+With --wrappers it builds no variant and times K8, K9 and K10 through the
 wrappers of the package beside the script (every device op of a call:
 kernel, memsets, fills), so a copy of the script beside an earlier
 commit's package times that commit's kernels.
@@ -32,7 +34,13 @@ Variants:
               tiles, not after every data tile
     prefetch  a whole tile's lengths loaded during the tile before it
     notail    tail tiles that store nothing (timing only: disagrees)
-    nodata    no data words in K8 and K10 (timing only: disagrees)
+    nodata    no data words in K8, K9 and K10 (timing only: disagrees)
+    k9whole   segments of up to 512 rows go whole whatever their row's
+              width (K9 at 4K 4:2:0 rows: a thread block two 76,800-word
+              rows)
+    k9whole1  k9whole, with tiles of whole segments that aim for 256 rows,
+              not 512 (one 240- or 480-MCU segment a tile)
+    k9split512  K9's split tiles of 512 MCUs (K8's and K10's), not 256
 
 The copies go to ``.chipcheck/merge_variants/`` (git-ignored), each built
 with seg_merge.cu alone. Needs a CUDA GPU and ``nvcc``; imports no JAX.
@@ -100,6 +108,9 @@ INTERLEAVE_NEW = """    long long t = split ? s_tile : k;
 """
 TARGET_128 = ("const long long target = kZeroTail ? kMaxTile : kTargetMcus;",
               "const long long target = kTargetMcus;")
+# Segments of up to kMaxTile rows whole, whatever their rows' width.
+WHOLE_WIDE = ("  const bool split = mps > kMaxTile || (kZeroTail && seg_words > "
+              "kTailWords);", "  const bool split = mps > kMaxTile;")
 
 
 def store_phase(body: str):
@@ -149,6 +160,13 @@ VARIANTS = {
     "nodata": [("    for (int f = tid; f < n_words; f += kThreads) {",
                 "    for (int f = tid; f < (kZeroTail ? 0 : n_words);"
                 " f += kThreads) {")],
+    "k9whole": [WHOLE_WIDE],
+    "k9whole1": [WHOLE_WIDE,
+                 ("const long long target = kZeroTail ? kMaxTile : "
+                  "kTargetMcus;",
+                  "const long long target = kZeroTail ? 256 : kTargetMcus;")],
+    "k9split512": [("  return launch<true, true, kSplitMcus>(mwords,",
+                    "  return launch<true, true, kZeroSplit>(mwords,")],
 }
 TIMING_ONLY = {"notail", "nodata"}
 
@@ -184,7 +202,8 @@ def build(names) -> dict:
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[build] {name}: {regs}")
         libs[name] = ctypes.CDLL(str(OUT / name / "lib.so"))
-        for fn in (libs[name].jt_mcu_merge, libs[name].jt_seg_merge_v1):
+        for fn in (libs[name].jt_mcu_merge, libs[name].jt_seg_merge_v1,
+                   libs[name].jt_seg_merge_window):
             fn.argtypes = ([ctypes.c_void_p] * 5 +
                            [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_longlong, ctypes.c_void_p])
@@ -212,13 +231,19 @@ def device_ops(fn, reps: int = 20) -> dict:
 
 
 def time_wrappers(cases, entropy_pack, card) -> int:
-    """K8 and K10 through the package's wrappers (entropy_pack.mcu_merge
-    and seg_merge; whichever package this copy of the script imports),
-    every device op of a call, twice in turns."""
+    """K8, K9 and K10 through the package's wrappers (entropy_pack's
+    mcu_merge, seg_merge_v2's seg_merge_window and seg_merge; whichever
+    package this copy of the script imports), every device op of a call,
+    twice in turns."""
+    from jpegtpu_torch.kernels import entropy_oracles
     fns = {}
     for case, (sym, bw, bl, ns, per, width) in cases.items():
         fns[case] = ((lambda bw=bw, bl=bl, g=per: entropy_pack.mcu_merge(
                          bw, bl, g)) if sym == "jt_mcu_merge" else
+                     (lambda bw=bw, bl=bl, ns=ns, per=per, width=width:
+                      entropy_oracles.seg_merge_window(bw, bl, ns, per,
+                                                       width))
+                     if sym == "jt_seg_merge_window" else
                      (lambda bw=bw, bl=bl, ns=ns, per=per, width=width:
                       entropy_pack.seg_merge(bw, bl, ns, per, width)))
     runs = {}
@@ -275,12 +300,16 @@ def main(names) -> int:
             if sub == "420":
                 cases[f"K10 {label}"] = ("jt_seg_merge_v1", bw, bl, ns,
                                          mps * g, -(-w_cap // 128) * 128)
+            mw, ml = entropy_oracles.mcu_merge(bw, bl, g)
+            cases[f"K9 {label}"] = ("jt_seg_merge_window", mw, ml, ns, mps,
+                                    (-(-w_cap // 1024) + 1) * 1024)
         del c
     if wrappers:
         return time_wrappers(cases, entropy_pack, card)
     libs = build(names)
     twins = {}
     for case, (sym, bw, bl, ns, per, width) in cases.items():
+        # K9's twin and K10's are one join (seg_merge_window_plain).
         twins[case] = (entropy_oracles.mcu_merge_plain(bw, bl, per, width)
                        if sym == "jt_mcu_merge" else
                        entropy_oracles.seg_merge_plain(bw, bl, ns, width))
@@ -289,10 +318,12 @@ def main(names) -> int:
         sym, bw, bl, ns, per, width = cases[case]
         out = torch.empty((ns, width), dtype=torch.int32, device=dev)
         sb = torch.empty((ns,), dtype=torch.int32, device=dev)
-        n_scr = entropy_pack.seg_merge_scratch_words(ns, per)
-        # Room for any variant's status words (split tiles of 256 rows or
-        # more: the count of K3's tiles).
-        scr = torch.empty(max(n_scr, 1), dtype=torch.int64, device=dev)
+        # Room for any variant's status words: split tiles of 256 rows or
+        # more (the count of K3's tiles), or one a segment split for its
+        # row's width.
+        n_scr = (entropy_pack.SEG_MERGE_SCRATCH_HEAD +
+                 ns * -(-per // entropy_pack.SEG_MERGE_TILE))
+        scr = torch.empty(n_scr, dtype=torch.int64, device=dev)
         fn = getattr(libs[name], sym)
         stream = torch.cuda.current_stream().cuda_stream
 
@@ -328,10 +359,9 @@ def main(names) -> int:
         for name in seq:
             for case in cases:
                 run = runner(name, case)[0]
-                key = ("seg_merge_mcu_kernel<false, true>"
-                       if cases[case][0] == "jt_mcu_merge"
-                       else "seg_merge_mcu_kernel<true, true>")
-                kern = chip_smoke.kernel_device_ms(run, key, reps=20)
+                # One instance runs a case: any instance's name is its key.
+                kern = chip_smoke.kernel_device_ms(
+                    run, "seg_merge_mcu_kernel<", reps=20)
                 mem = chip_smoke.kernel_device_ms(run, "Memset", reps=20)
                 times[order, name, case] = (kern, mem)
     for name in names:

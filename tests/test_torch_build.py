@@ -95,3 +95,25 @@ def test_fused_launcher_takes_the_factors():
     assert [p.split()[-1].lstrip("*") for p in params[:4]] == [
         "img", "lum", "chroma", "bias"]
     assert not any(p.split()[-1].lstrip("*") == "m" for p in params)
+
+
+# Each kernel's launcher and the source that builds it: K3, K8, K9 and K10
+# are instances of one body in seg_merge.cu, K2 and K7 share block_pack.cu.
+LAUNCHER_SOURCES = {
+    "jt_seg_merge_mcu": "seg_merge.cu", "jt_mcu_merge": "seg_merge.cu",
+    "jt_seg_merge_window": "seg_merge.cu", "jt_seg_merge_v1": "seg_merge.cu",
+    "jt_block_pack": "block_pack.cu", "jt_block_pack_mcu": "block_pack.cu",
+    "jt_block_pack_mcu_segments": "block_pack.cu"}
+
+
+@pytest.mark.parametrize("symbol", sorted(LAUNCHER_SOURCES))
+def test_launcher_lives_in_its_source(symbol):
+    assert _launchers()[symbol][0] == LAUNCHER_SOURCES[symbol]
+
+
+def test_merge_instances_are_symbols_of_their_own():
+    """The four launchers of seg_merge.cu launch four distinct instances
+    of its body, so the profiler and ptxas name each kernel apart."""
+    text = (_build.CSRC / "seg_merge.cu").read_text()
+    args = re.findall(r"return launch<([^>]*)>", text)
+    assert len(args) == 4 and len(set(args)) == 4, args

@@ -10,6 +10,8 @@ so it runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest -q -p no:cacheprovider
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -18,8 +20,8 @@ import jpegtpu_torch
 from jpegtpu_torch.core import ops
 from jpegtpu_torch.encoder import EncoderTables
 from jpegtpu_torch.entropy import scan
-from jpegtpu_torch.kernels import (compact, entropy_oracles, entropy_pack,
-                                   fused_dctq, fused_pipeline)
+from jpegtpu_torch.kernels import (_build, compact, entropy_oracles,
+                                   entropy_pack, fused_dctq, fused_pipeline)
 from test_torch_stuff import CHUNK_CASES, chunk_case
 
 pytestmark = pytest.mark.gpu
@@ -954,6 +956,71 @@ def test_block_pack_kernel_matches_twin(dev, kind, n):
     assert torch.equal(l, l_p) and torch.equal(w, w_p)
 
 
+def _k7_per():
+    """csrc/block_pack.cu's kPackPer: the blocks a K7 warp takes."""
+    src = (_build.CSRC / "block_pack.cu").read_text()
+    return int(re.search(r"kPackPer = (\d+)", src).group(1))
+
+
+@pytest.mark.parametrize("n", [1, 31, "per-1", "per+1", 100003])
+@pytest.mark.parametrize("kind", ["dense", "sparse", "longest"])
+def test_block_pack_kernel_writes_whole_rows_only(dev, kind, n):
+    """K7 launched directly into rows 1 .. n of an [n + 2, 56] buffer of
+    SENTINEL (the lengths likewise): every word of each row written (zeros
+    past the stream), nothing outside, at counts that leave a warp's last
+    group short and past one sweep of the persistent grid, and on blocks
+    of the longest stream (every slot at 10 bits in luma, 1,658 bits)."""
+    per = _k7_per()
+    n = max(1, {"per-1": per - 1, "per+1": per + 1}.get(n, n))
+    rng = np.random.default_rng(n)
+    if kind == "longest":
+        c = rng.choice([-1023, 1023], (n, 64)).astype(np.int32)
+        cls = np.zeros(n, np.int32)
+        dcd = rng.choice([-2047, 2047], n).astype(np.int32)
+    else:
+        c = _coeffs(kind, -(-n // 6), n).reshape(-1, 64)[:n]
+        cls = rng.integers(0, 2, n).astype(np.int32)
+        dcd = rng.integers(-2047, 2048, n).astype(np.int32)
+    c, cls, dcd = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in (c, cls, dcd))
+    luts = entropy_pack.standard_luts(dev)
+    w = torch.full((n + 2, entropy_pack.BLOCK_WORDS), SENTINEL,
+                   dtype=torch.int32, device=dev)
+    l = torch.full((n + 2,), SENTINEL, dtype=torch.int32, device=dev)
+    entropy_pack.PACK_BLOCKS.launch(
+        dev, c.data_ptr(), cls.data_ptr(), dcd.data_ptr(),
+        *(t.data_ptr() for t in luts), w[1].data_ptr(), l[1:].data_ptr(), n)
+    w_p, l_p = entropy_pack.block_pack_plain(c, cls, dcd, *luts)
+    assert torch.equal(l[1:-1], l_p) and torch.equal(w[1:-1], w_p)
+    assert bool((w[0] == SENTINEL).all() and (w[-1] == SENTINEL).all())
+    assert int(l[0]) == int(l[-1]) == SENTINEL
+    if kind == "longest":
+        assert bool((l_p == 1658).all())
+
+
+def test_block_pack_copies_a_misaligned_input(dev):
+    """K7 loads two slots at once: a view of the coefficients 4 bytes off
+    an 8-byte boundary goes through an aligned copy; the launcher refuses
+    it (716, misaligned address) and an output row off 16 bytes."""
+    n = 37
+    flat = torch.from_numpy(_coeffs("dense", 7, 5).reshape(-1)).to(dev)
+    c = flat[1:1 + 64 * n].reshape(n, 64)
+    cls = torch.zeros(n, dtype=torch.int32, device=dev)
+    dcd = torch.arange(n, dtype=torch.int32, device=dev)
+    luts = entropy_pack.standard_luts(dev)
+    w, l = entropy_pack.block_pack(c, cls, dcd)
+    w_p, l_p = entropy_pack.block_pack_plain(c, cls, dcd, *luts)
+    assert torch.equal(l, l_p) and torch.equal(w, w_p)
+    out = torch.empty((n + 1, entropy_pack.BLOCK_WORDS), dtype=torch.int32,
+                      device=dev)
+    for cp, wp in ((c.data_ptr(), out.data_ptr()),
+                   (c.contiguous().clone().data_ptr(), out.data_ptr() + 4)):
+        with pytest.raises(RuntimeError, match="CUDA error 716"):
+            entropy_pack.PACK_BLOCKS.launch(
+                dev, cp, cls.data_ptr(), dcd.data_ptr(),
+                *(t.data_ptr() for t in luts), wp, l.data_ptr(), n)
+
+
 # (g, MCUs, chunks): g = 1, 3, 4 and 6, ragged tiles, budget-sized rows
 # that truncate, more blocks than a warp's lanes (200), a row of 500
 # chunks (64,000 words) and g past a whole-segment tile (1000 blocks: split
@@ -1063,14 +1130,17 @@ def test_oracle_rungs_equal_the_main_path(dev, mode, restart):
 
 
 def _sentinel_oracle(kernel, rows, lens, n_seg, per_seg, width):
-    """K8 or K10 launched directly into rows 1 .. n_seg of an [n_seg + 2,
+    """K8, K9 or K10 launched directly into rows 1 .. n_seg of an [n_seg + 2,
     width] buffer filled with SENTINEL (seg_bits likewise): (the buffer,
     its seg_bits)."""
     buf = torch.full((n_seg + 2, width), SENTINEL, dtype=torch.int32,
                      device=rows.device)
     sb = torch.full((n_seg + 2,), SENTINEL, dtype=torch.int32,
                     device=rows.device)
-    n_scratch = entropy_pack.seg_merge_scratch_words(n_seg, per_seg, True)
+    split_rows = (entropy_pack.SEG_MERGE_TILE
+                  if kernel is entropy_oracles.SEG_MERGE_WINDOW else None)
+    n_scratch = entropy_pack.seg_merge_scratch_words(n_seg, per_seg, True,
+                                                     width, split_rows)
     scratch = torch.empty(max(n_scratch, 1), dtype=torch.int64,
                           device=rows.device)
     kernel.launch(rows.device, rows.data_ptr(), lens.data_ptr(),
@@ -1082,9 +1152,14 @@ def _sentinel_oracle(kernel, rows, lens, n_seg, per_seg, width):
 
 # (instance, segments, streams a segment, output words): K8 at g 1, 3, 4,
 # 6 and 40 (past a warp's lanes), a budget row that truncates and g 600
-# (split); K10 on segments of 6 and 480 blocks (whole), 600 (split), one
-# segment of 194,400 (the restart-0 shape, 760 tiles and tail tiles) and
-# rows shorter than their data (whole and split).
+# (split); K10 on segments of 6 blocks (whole), 480 (in rows wider than a
+# tail tile: split) and 600 (split), one segment of 194,400 (the restart-0
+# shape, 760 tiles and tail tiles) and rows shorter than their data (whole
+# and split); K9 over K8's 384-word MCU rows, in jpegtpu's v2 rows of
+# frames * 1024 words (None: the rows that hold the worst case), on one MCU
+# a segment (whole tiles), the 240-MCU segments of 4:2:0 rows (rows wider
+# than a tail tile: split), 600-MCU segments and the 32,400-MCU restart-0
+# segment (split), and rows shorter than their data (whole and split).
 SENTINEL_MERGES = {
     "K8_g1": ("K8", 50, 1, 128), "K8_g3": ("K8", 41, 3, 256),
     "K8_g4": ("K8", 37, 4, 256), "K8_g6": ("K8", 33, 6, 384),
@@ -1095,22 +1170,33 @@ SENTINEL_MERGES = {
     "K10_194400": ("K10", 1, 194400, 10108928),
     "K10_short_whole": ("K10", 5, 240, 256),
     "K10_short_split": ("K10", 3, 1200, 512),
+    "K9_one_mcu": ("K9", 50, 1, None), "K9_240": ("K9", 5, 240, None),
+    "K9_600": ("K9", 3, 600, None), "K9_32400": ("K9", 1, 32400, None),
+    "K9_short_whole": ("K9", 5, 240, 2048),
+    "K9_short_split": ("K9", 2, 1200, 4096),
 }
 
 
 @pytest.mark.parametrize("case", sorted(SENTINEL_MERGES))
 def test_merge_instances_write_whole_rows_only(dev, case):
-    """K8 and K10, instances of K3's body with the zero tail, against their
-    twins on whole rows, bit for bit, launched between sentinel rows: every
-    word of each output row written (zeros past the data), nothing outside
-    the output, the true bit counts."""
+    """K8, K9 and K10, instances of K3's body with the zero tail, against
+    their twins on whole rows, bit for bit, launched between sentinel rows:
+    every word of each output row written (zeros past the data), nothing
+    outside the output, the true bit counts."""
     which, n_seg, per, width = SENTINEL_MERGES[case]
-    words, lens = _oracle_streams(n_seg * per, entropy_pack.BLOCK_WORDS,
-                                  n_seg + per, dev)
+    row_w = 384 if which == "K9" else entropy_pack.BLOCK_WORDS
+    words, lens = _oracle_streams(n_seg * per, row_w, n_seg + per, dev)
+    if width is None:
+        w_cap = entropy_pack.segment_words(n_seg, per, row_w)
+        width = (-(-w_cap // 1024) + 1) * 1024
     if which == "K8":
         kernel = entropy_oracles.MCU_MERGE
         want_w, want_b = entropy_oracles.mcu_merge_plain(words, lens, per,
                                                          width)
+    elif which == "K9":
+        kernel = entropy_oracles.SEG_MERGE_WINDOW
+        want_w, want_b = entropy_oracles.seg_merge_window_plain(
+            words, lens, n_seg, width)
     else:
         kernel = entropy_oracles.SEG_MERGE_V1
         want_w, want_b = entropy_oracles.seg_merge_plain(words, lens, n_seg,

@@ -360,19 +360,37 @@ def test_merge_wrappers_refuse_widths():
         t_eo.seg_merge(words, lens, 2, 6, 1 << 31)
 
 
-# --- K8 and K10 as instances of csrc/seg_merge.cu's body --------------------
+def test_seg_merge_window_refuses_rows_of_partial_quads():
+    """K9 writes whole output rows in 16-byte stores: a row width that is
+    not a multiple of 4 words is refused on either device (jpegtpu's v2
+    rows are frames * 1024 words)."""
+    words, lens = _streams(12, t_ep.BLOCK_WORDS, 3)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        t_eo.seg_merge_window(words, lens, 2, 6, 1026)
+    sw, sb = t_eo.seg_merge_window(words, lens, 2, 6, 1028)
+    assert sw.shape == (2, 1028) and sb.shape == (2,)
 
-def _brute_plan(n_seg, per, seg_w, zero_tail):
+
+# --- K8, K9 and K10 as instances of csrc/seg_merge.cu's body --------------
+
+def _brute_plan(n_seg, per, seg_w, zero_tail, tile=None):
     """(data tiles, tail tiles, scratch words) of one launch, counted by
     naming the tile of every row and every output word: a whole-segment
     tile holds max(1, TARGET // per) consecutive segments (max(1, WHOLE //
-    per) with the zero tail); a split tile TILE (zero tail: ZERO_TILE)
-    consecutive rows of one segment; a tail tile TAIL consecutive words of
-    one split segment's row."""
-    split = per > t_ep.SEG_MERGE_WHOLE
+    per) with the zero tail); a segment of more than WHOLE rows (with the
+    zero tail also one of a row wider than TAIL words) is cut into split
+    tiles of `tile` (by default TILE, with the zero tail ZERO_TILE)
+    consecutive rows, all its rows where it has no more than WHOLE; a tail
+    tile TAIL consecutive words of one split segment's row."""
+    split = per > t_ep.SEG_MERGE_WHOLE or (zero_tail and
+                                           seg_w > t_ep.SEG_MERGE_TAIL)
     s, i = np.divmod(np.arange(n_seg * per), per)
     if split:
-        tile = t_ep.SEG_MERGE_ZERO_TILE if zero_tail else t_ep.SEG_MERGE_TILE
+        if tile is None:
+            tile = (t_ep.SEG_MERGE_ZERO_TILE if zero_tail
+                    else t_ep.SEG_MERGE_TILE)
+        if per <= t_ep.SEG_MERGE_WHOLE:
+            tile = per
         data = len(np.unique(s * n_seg * per + i // tile))
     else:
         rows = t_ep.SEG_MERGE_WHOLE if zero_tail else t_ep.SEG_MERGE_TARGET
@@ -413,6 +431,53 @@ def test_merge_plan_at_4k(n_seg, per, seg_w, want):
     16,384 words, and a status word a data tile."""
     assert (*t_ep.seg_merge_tiles(n_seg, per, seg_w, True),
             t_ep.seg_merge_scratch_words(n_seg, per, True)) == want
+
+
+def _k9_width(n_seg, mps, g):
+    """K9's output row in the ladder's v2: frames * 1024 words, frames =
+    ceil(w_cap / 1024) + 1, w_cap the port's segment_words of K2's MCU
+    rows (g * 52 + 2 words)."""
+    w_cap = t_ep.segment_words(n_seg, mps, t_ep.mcu_words(g))
+    return (-(-w_cap // 1024) + 1) * 1024
+
+
+# (segments, MCUs a segment, g): K9 over K8's MCU rows at g = 6 and 3: one
+# MCU a segment and segments of 7 (rows of up to 16,384 words: whole
+# tiles), segments of 100, 240 and 480 (rows wider: split, a data tile
+# each), 600 and 1,300 (past 512 MCUs: tiles of 256), and the 4K ladder's
+# 4:2:0 rows, 4:4:4 rows and restart 0.
+K9_PLANS = [(40, 1, 6), (30, 7, 6), (9, 100, 6), (5, 240, 6), (3, 480, 3),
+            (3, 600, 6), (2, 1300, 3), (135, 240, 6), (270, 480, 3),
+            (1, 32400, 6)]
+
+
+@pytest.mark.parametrize("n_seg,mps,g", K9_PLANS)
+def test_k9_plan_matches_brute_force(n_seg, mps, g):
+    """K9's launch plan (split tiles of SEG_MERGE_TILE MCUs) against the
+    brute-force count."""
+    seg_w = _k9_width(n_seg, mps, g)
+    tile = t_ep.SEG_MERGE_TILE
+    got = (*t_ep.seg_merge_tiles(n_seg, mps, seg_w, True, tile),
+           t_ep.seg_merge_scratch_words(n_seg, mps, True, seg_w, tile))
+    assert got == _brute_plan(n_seg, mps, seg_w, True, tile)
+
+
+@pytest.mark.parametrize("n_seg,mps,g,want", [
+    (135, 240, 6, (76800, 135, 675, 151)),      # 4:2:0 rows
+    (270, 480, 3, (76800, 270, 1350, 286)),     # 4:4:4 rows
+    (1, 32400, 6, (10109952, 127, 618, 143)),   # 4:2:0 restart 0
+])
+def test_k9_plan_at_4k(n_seg, mps, g, want):
+    """The 4K ladder's K9 launches: its 76,800-word rows are wider than a
+    tail tile, so every segment is split: a data tile a 240- or 480-MCU
+    segment (127 tiles of 256 MCUs the restart-0 segment), a status word
+    each, and tail tiles of 16,384 words that zero the rows past the
+    data."""
+    seg_w = _k9_width(n_seg, mps, g)
+    tile = t_ep.SEG_MERGE_TILE
+    assert (seg_w, *t_ep.seg_merge_tiles(n_seg, mps, seg_w, True, tile),
+            t_ep.seg_merge_scratch_words(n_seg, mps, True, seg_w,
+                                         tile)) == want
 
 
 # (segments, rows a segment, output words, whole, target, split, tail,
@@ -457,5 +522,52 @@ def test_zero_tail_instances_write_each_word_once(name):
     if name.endswith(("truncating", "short")):
         assert (want_b.numpy() > 32 * seg_w).any(), "pick truncating rows"
     n_split = -(-per // split) if per > whole else 0
+    assert tiles == ((n_seg * n_split, n_seg * -(-seg_w // tail))
+                     if n_split else (-(-n_seg // max(1, whole // per)), 0))
+
+
+# (segments, MCUs a segment, output words, whole, split, tail, wide): K9's
+# instance in the model, its rows (output words) against `wide` (the
+# kernel's kTailWords): one-MCU segments and whole segments in rows no
+# wider (whole tiles), rows too short for their segments, and segments
+# that fit a tile in rows wider than `wide` (split: a data tile a segment,
+# and tail tiles), and segments longer than `whole` (split tiles).
+K9_CASES = {
+    "one_mcu": (9, 1, 8, 4, 3, 5, 8),
+    "whole": (5, 3, 16, 4, 3, 4, 16),
+    "whole_short": (5, 3, 2, 4, 3, 4, 16),
+    "wide_rows": (5, 3, 24, 4, 3, 8, 16),
+    "wide_rows_at_whole": (3, 4, 40, 4, 3, 8, 16),
+    "long_segments": (2, 11, 24, 4, 3, 8, 16),
+    "wide_rows_short": (3, 8, 18, 8, 3, 8, 16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K9_CASES))
+def test_k9_instance_writes_each_word_once(name):
+    """The kernel model as K9 runs it (pad, zero tail, rows wider than
+    `wide` split): every word of every output row written exactly once,
+    equal to ``seg_merge_window_plain``'s whole rows and its bit counts."""
+    n_seg, per, seg_w, whole, split, tail, wide = K9_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    words = rng.integers(0, 1 << 32, (n_seg * per, 5),
+                         dtype=np.uint64).astype(np.uint32)
+    lens = rng.integers(0, 161, n_seg * per).astype(np.int32)
+    lens[::4] = 0
+    lens[1::5] = 160
+    out, writes, bits, tiles = _k3_model(words, lens, n_seg, per, seg_w,
+                                         whole, whole, split, True, tail,
+                                         wide)
+    tw, tl = torch.from_numpy(words.view(np.int32)), torch.from_numpy(lens)
+    want_w, want_b = t_eo.seg_merge_window_plain(tw, tl, n_seg, seg_w)
+    assert [bits[s] for s in range(n_seg)] == want_b.tolist()
+    assert set(writes) == {(s, q) for s in range(n_seg)
+                           for q in range(seg_w)}
+    assert set(writes.values()) == {1}
+    want = _u32(want_w)
+    assert all(out[s, q] == want[s, q] for (s, q) in out), name
+    if name.endswith("short"):
+        assert (want_b.numpy() > 32 * seg_w).any(), "pick truncating rows"
+    n_split = -(-per // split) if per > whole else int(seg_w > wide)
     assert tiles == ((n_seg * n_split, n_seg * -(-seg_w // tail))
                      if n_split else (-(-n_seg // max(1, whole // per)), 0))

@@ -15,8 +15,9 @@ reaches otherwise: K2's pair layout (lane l holds slots 2l and 2l+1; the
 previous nonzero slot from two ballots) and its 64-bit runs split over
 three words; K3's tiles, with tiles small enough to split a segment
 several times, each output word written once by the tile that holds its
-first bit. And the consumers of K3's output (the stuffing and compaction
-twins) read nothing past a segment's bytes.
+first bit; K7's groups of blocks, each at bit 0 of its own row, whole rows
+written once. And the consumers of K3's output (the stuffing and
+compaction twins) read nothing past a segment's bytes.
 """
 
 import re
@@ -271,16 +272,122 @@ def test_put_run_splits_a_run_over_three_words():
             assert got == run << (96 - r - length), (length, r)
 
 
+# --- K7's groups of blocks, in numpy.
+
+def _k7_model(c, cls, dcd, per):
+    """csrc/block_pack.cu's K7 in numpy: a warp takes `per` consecutive
+    blocks (fewer in the last group), each block's lane runs (slot 2l's
+    symbol then slot 2l+1's, ``_pair_model``) placed by an exclusive scan
+    at bit 0 of its own 56-word shared row by put_run's three words, then
+    the group's rows go out as 16-byte quads, a quad from the row where it
+    holds valid words (and zeroed there) and zeros else. -> (rows u32
+    [N, 56], lengths [N], writes per (block, word)); asserts that the
+    shared rows are zero again after every group."""
+    n = c.shape[0]
+    slot_l, slot_b = _pair_model(c, dcd, cls)
+    out = np.full((n, t_ep.BLOCK_WORDS), 0xDEADBEEF, np.uint64)
+    lens = np.full(n, -1, np.int64)
+    writes = Counter()
+    shared = np.zeros((per, t_ep.BLOCK_WORDS), np.uint64)
+    mask32 = 0xFFFFFFFF
+    for b0 in range(0, n, per):
+        nb = min(per, n - b0)
+        total = []
+        for u in range(nb):
+            ln = slot_l[b0 + u, 0::2] + slot_l[b0 + u, 1::2]
+            ex = np.concatenate([[0], np.cumsum(ln)[:-1]])
+            for lane in range(32):
+                length = int(ln[lane])
+                if not length:
+                    continue
+                run = ((int(slot_b[b0 + u, 2 * lane]) <<
+                        int(slot_l[b0 + u, 2 * lane + 1])) |
+                       int(slot_b[b0 + u, 2 * lane + 1]))
+                t = (run << (64 - length)) & (2 ** 64 - 1)
+                w, r = divmod(int(ex[lane]), 32)
+                for d, part in enumerate((t >> (32 + r), t >> r,
+                                          t << (32 - r))):
+                    if part & mask32:
+                        shared[u, w + d] |= part & mask32
+            total.append(int(ln.sum()))
+        for q in range(nb * t_ep.BLOCK_WORDS // 4):
+            r, j = divmod(q, t_ep.BLOCK_WORDS // 4)
+            valid = 4 * j < -(-total[r] // 32)
+            for k in range(4 * j, 4 * j + 4):
+                out[b0 + r, k] = shared[r, k] if valid else 0
+                writes[b0 + r, k] += 1
+                if valid:
+                    shared[r, k] = 0
+        lens[b0:b0 + nb] = total
+        assert not shared.any(), "a shared row left dirty"
+    return out.astype(np.uint32), lens, writes
+
+
+def _k7_blocks(kind, n, seed):
+    """(coeffs [n, 64], cls [n], dcd [n]) int32 of one kind: 'dense' every
+    slot at 10 bits and DC steps of 11 in luma blocks (the longest stream,
+    1,658 bits),
+    'zeros' all-zero blocks (DC difference 0: EOB alone), 'eob' a DC step
+    and then EOB, 'zrl' runs of 16 and more zeros before a value (ZRL) and
+    values in the last slot (no EOB)."""
+    rng = np.random.default_rng(seed)
+    c = np.zeros((n, 64), np.int64)
+    dcd = rng.integers(-2047, 2048, n)
+    if kind == "dense":
+        c = rng.choice([-1023, 1023], (n, 64))
+        dcd = rng.choice([-2047, 2047], n)
+    elif kind == "zeros":
+        dcd[:] = 0
+    elif kind == "zrl":
+        c[:, 17] = rng.integers(1, 40, n)
+        c[:, 50] = -rng.integers(1, 40, n)
+        c[1::2, 63] = 3
+    c[:, 0] = 0
+    cls = rng.integers(0, 2, n) if kind != "dense" else np.zeros(n)
+    return c.astype(np.int32), cls.astype(np.int32), dcd.astype(np.int32)
+
+
+def _k7_per():
+    """csrc/block_pack.cu's kPackPer: the blocks a K7 warp takes."""
+    src = (_build.CSRC / "block_pack.cu").read_text()
+    return int(re.search(r"kPackPer = (\d+)", src).group(1))
+
+
+@pytest.mark.parametrize("n", [1, "per-1", "per", "3per+1"])
+@pytest.mark.parametrize("kind", ["dense", "zeros", "eob", "zrl"])
+def test_k7_groups_write_whole_rows_once(kind, n):
+    """The K7 model against ``block_pack_plain``: every word of every row
+    written once (zeros past the data), the same rows and lengths, at
+    block counts that leave the last group short."""
+    per = _k7_per()
+    n = max(1, {"per-1": per - 1, "per": per,
+                "3per+1": 3 * per + 1}.get(n, n))
+    c, cls, dcd = _k7_blocks(kind, n, sum(map(ord, kind)) + n)
+    words, lens, writes = _k7_model(c, cls, dcd, per)
+    want_w, want_l = t_ep.block_pack_plain(
+        torch.from_numpy(c), torch.from_numpy(cls), torch.from_numpy(dcd),
+        *LUTS)
+    np.testing.assert_array_equal(lens, want_l.numpy())
+    np.testing.assert_array_equal(words, _u32(want_w))
+    assert set(writes) == {(i, k) for i in range(n)
+                           for k in range(t_ep.BLOCK_WORDS)}
+    assert set(writes.values()) == {1}
+    if kind == "dense":
+        assert lens.min() == 1658, "pick blocks of the longest stream"
+
+
 # --- K3's tiles, in numpy.
 
 def _k3_model(words, lens, n_seg, mps, seg_w, whole, target, split_mcus,
-              pad=True, tail=None):
+              pad=True, tail=None, wide=None):
     """csrc/seg_merge.cu in numpy with its tile constants as arguments:
     (segment words {(s, q): word}, writes per (s, q), seg_bits, (data
     tiles, tail tiles)). A segment of more than `whole` MCUs is cut into
     tiles of split_mcus, each taking its carry from the tiles before it in
     its segment; else a tile is max(1, target // mps) whole segments
-    (max(1, whole // mps) with the zero tail). Each
+    (max(1, whole // mps) with the zero tail). With `wide` (K9: the
+    kernel's kTailWords) a segment whose row is wider than wide words is
+    split too, one tile where it has no more than `whole` MCUs. Each
     tile owns the words whose first bit it holds and builds each from the
     MCU holding that bit and the ones after it, by the kernel's funnel
     shift, reading only words that hold data (asserted), 1-padding the
@@ -305,8 +412,10 @@ def _k3_model(words, lens, n_seg, mps, seg_w, whole, target, split_mcus,
         x = (((hi << 32) | lo) << sh >> 32) & 0xFFFFFFFF
         return x >> (32 - take)
 
-    split = mps > whole
-    tps = -(-mps // split_mcus) if split else 1
+    split = mps > whole or (wide is not None and seg_w > wide)
+    tps = -(-mps // split_mcus) if mps > whole else 1
+    if split and tps == 1:
+        split_mcus = mps
     spt = max(1, (whole if tail else target) // mps)
     n_tiles = n_seg * tps if split else -(-n_seg // spt)
     out, writes, seg_bits = {}, Counter(), {}
