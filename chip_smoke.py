@@ -27,6 +27,7 @@ card's output to jpegtpu's (``tests/test_torch_encoder.py`` and
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import json
 import re
@@ -528,7 +529,7 @@ def main() -> int:
         fused_dctq.PIXEL_DC_PLANE.launch(
             dev, x.data_ptr(), lum.data_ptr(), chroma.data_ptr(),
             t.bias.data_ptr(), out_s.data_ptr(), dc_s.data_ptr(), nm, nrx_,
-            w * 3, mh, mwid, fused_dctq.chroma_groups(sub)[0])
+            w * 3, h, h // mh, mh, mwid, fused_dctq.chroma_groups(sub)[0])
         c_p = fused_dctq.encode_blocks_pairs_plain(x, t.m, t.bias, sub)
         n_c, e_c = diff(out_s[:nm], c_p)
         n_d, e_d = diff(dc_s[:nm], fused_dctq.dc_plane(c_p))
@@ -995,17 +996,23 @@ def main() -> int:
     # first), each kernel launched once (with fuse_bp the fused kernel in
     # place of K1 and K2), every file equal to the per-image encode of its
     # image, RST markers 0..7 from each image's start, and golden_image()'s
-    # file at GOLDEN_SHA256.
+    # file at GOLDEN_SHA256. 1080 rows are not whole 4:2:0 MCUs: K1 reads
+    # the mirrored rows itself (one fold, no gather), K11 reads a padded
+    # copy (one gather).
     singles = [jpegtpu_torch.encode(im, quality=QUALITY) for im in batch]
     for bkw in ({"device_stuff": True}, {"device_stuff": False},
                 {"fuse_bp": True}):
         ds, fuse = bkw.get("device_stuff", True), bkw.get("fuse_bp", False)
+        fused_dctq.PADS.folds = fused_dctq.PADS.gathers = 0
         files, counts = counted(lambda: jpegtpu_torch.encode_batch(
             list(batch), quality=QUALITY, **bkw))
+        pads = dataclasses.astuple(fused_dctq.PADS)
         label = (f"encode_batch {BATCH} x {GOLDEN_SHAPE[1]}x"
                  f"{GOLDEN_SHAPE[0]} q{QUALITY} 420 rows{selectors(bkw)}")
         print(f"[e2e] {label}: {sum(map(len, files))} bytes, launches "
-              f"{counts}")
+              f"{counts}, row folds / pad gathers {pads}")
+        if pads != ((0, 1) if fuse else (1, 0)):
+            raise AssertionError(f"{label}: row folds / pad gathers {pads}")
         want = dict.fromkeys(counts, 0)
         want.update(pixel=int(not fuse), block_pack=int(not fuse),
                     seg_merge=1, stuff=int(ds), compact=int(not ds),
@@ -1302,6 +1309,43 @@ def main() -> int:
     for n, keys in pixel_keys.items():
         print(f"[time] {n} kernel alone (profiler), 420 {w}x{h}: "
               f"{kernel_device_ms(pairs[n][0], *keys)} ms  [{card}]")
+    # K1 and K12 on the 8 x 1920x1080 batch through encode_blocks_batch:
+    # 1080 rows are not whole MCUs, so the kernel reads each image's
+    # mirrored last MCU row itself (one launch, no gather). Against the
+    # plain twin on each padded image, then timed with its wrapper and
+    # alone (profiler).
+    bh, bw = GOLDEN_SHAPE
+    bmpix = BATCH * bh * bw / 1e6
+    batch_pairs = {
+        "pixel": (lambda: fused_dctq.encode_blocks_batch(xb, tables, "420"),
+                  lambda: torch.cat([fused_dctq.encode_blocks_pairs_plain(
+                      im, tables.m, tables.bias) for im in xb])),
+        "pixel_dc": (lambda: fused_dctq.encode_blocks_batch(
+                         xb, tables, "420", with_dc=True)[1],
+                     lambda: fused_dctq.dc_plane(torch.cat([
+                         fused_dctq.encode_blocks_pairs_plain(
+                             im, tables.m, tables.bias) for im in xb])))}
+    for n, (kern, plain) in batch_pairs.items():
+        label = f"{n} batch {BATCH} x {bw}x{bh} 420 (rows folded)"
+        fused_dctq.PADS.folds = fused_dctq.PADS.gathers = 0
+        got = kern()
+        pads = dataclasses.astuple(fused_dctq.PADS)
+        if pads != (1, 0):
+            raise AssertionError(f"{label}: row folds / pad gathers {pads}")
+        n_bad, e = diff(got, plain())
+        errs[n] = max(errs[n], e)
+        report(f"{label} against the plain twin on each padded image",
+               n_bad, e)
+        del got
+        p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
+                          time_ms(plain))
+        for what, ms in (("kernel (wrapper)", min(k1, k2)),
+                         ("plain twin", min(p1, p2))):
+            print(f"[time] {label} {what}: {ms:.4f} ms  "
+                  f"{bmpix / ms * 1e3:.2f} MPix/s  [{card}]")
+        alone = kernel_device_ms(kern, *pixel_keys[n])
+        print(f"[time] {label} kernel alone (profiler): {alone} ms  "
+              f"[{card}]")
     # K11 alone at 4:2:2 and 4:4:4 rows, twice each (profiler).
     for sub, dims in (("422", "8, 16, 32"), ("444", "8, 8, 64")):
         t = tabs[sub]
@@ -1510,6 +1554,7 @@ def main() -> int:
     head = (lum.data_ptr(), chroma.data_ptr(), tables.bias.data_ptr(),
             out_a.data_ptr())
     tail = (n_mcu, mx, w * 3)
+    rows = (h, h // 16)                     # whole MCUs: K1's unfolded read
     library_call = ("library float64 torch.matmul",
                     lambda: torch.matmul(tiles, m64))
     in_turns = {
@@ -1521,10 +1566,10 @@ def main() -> int:
             library_call]),
         "kernels alone": dict([
             ("K1 jt_pixel", lambda: fused_dctq.PIXEL.launch(
-                dev, x.data_ptr(), *head, *tail, 16, 16, 64)),
+                dev, x.data_ptr(), *head, *tail, *rows, 16, 16, 64)),
             ("K12 jt_pixel_dc", lambda: fused_dctq.PIXEL_DC_PLANE.launch(
-                dev, x.data_ptr(), *head, dc_a.data_ptr(), *tail, 16, 16,
-                64)),
+                dev, x.data_ptr(), *head, dc_a.data_ptr(), *tail, *rows, 16,
+                16, 64)),
             ("K13 jt_pixel_i8", lambda: fused_dctq.PIXEL_I8.launch(
                 dev, x8.data_ptr(), *head, *tail)),
             ("K14 jt_pixel_dma (bulk copies)",
@@ -1550,7 +1595,8 @@ def main() -> int:
     out1 = torch.empty((1, 384), dtype=torch.int32, device=dev)
     lum, chroma = fused_dctq.cuda_factors(tables.m, tables.bias, "420")
     args = (one.data_ptr(), lum.data_ptr(), chroma.data_ptr(),
-            tables.bias.data_ptr(), out1.data_ptr(), 1, 1, 48, 16, 16, 64)
+            tables.bias.data_ptr(), out1.data_ptr(), 1, 1, 48, 16, 1, 16, 16,
+            64)
     k1 = fused_dctq.PIXEL
     ways = {"Kernel.launch (device guard, its stream)":
             lambda: k1.launch(one.device, *args),

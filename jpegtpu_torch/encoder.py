@@ -220,7 +220,7 @@ def _segments(imgs: torch.Tensor, tables: EncoderTables, subsampling: str,
     the coefficients); then the segment merge, which takes a ragged last
     segment as it is."""
     if fuse_bp and subsampling in fused_pipeline.FUSED_MODES:
-        padded = ops.pad_to_multiple(imgs, ops.mcu_shape(subsampling))
+        padded = fused_dctq.pad_mcus(imgs, subsampling)
         mwords, mlens = fused_pipeline.fused_pixel_block_pack_pairs(
             padded.reshape(-1, *padded.shape[2:]), tables, subsampling,
             restart)

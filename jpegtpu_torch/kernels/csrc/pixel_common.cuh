@@ -22,6 +22,12 @@
 // twins, the factored plain form and K11's scalar DC dot products.
 //
 // Products of u8 pixels and f32 operator entries are exact in float64.
+//
+// The staging (Staging::fetch) reads an image of whole MCUs (K11), or,
+// with kRowFold (K1, K12 and K13), the tall view [n * h, W, 3] of n images
+// of h rows and my MCU rows each (the launcher's arguments h and my): each
+// image's rows past h are read from their numpy-symmetric mirror, so a
+// height that is not whole MCUs needs no padded copy.
 
 #pragma once
 
@@ -339,12 +345,20 @@ struct Staging {
   // This thread's pieces of the tile at MCU m0 (zeros past n_mcu). Piece q
   // is row y, MCU k, part p of the tile, and lands at byte q * kBytes of
   // the staged tile [kMh][kTile * kRowBytes]. kI8: the image is the centred
-  // int8 view, restored to u8 here.
-  template <bool kI8>
+  // int8 view, restored to u8 here. Without kRowFold, MCU row `row` reads
+  // image rows row * kMh + y (whole MCUs). kRowFold: the image is the tall
+  // view [n * h, W, 3] of n unpadded images of h rows, my = ceil(h / kMh)
+  // MCU rows each, with my * kMh < 2h (the launcher checks); MCU row `row`
+  // is MCU row row - i * my of image i = row / my, and its pixel row
+  // p = (row - i * my) * kMh + y reads row i * h + min(p, 2h - 1 - p): p
+  // itself inside the image, else numpy's symmetric mirror 2h - 1 - p, as
+  // jpegtpu_torch.core.ops._pad_index pads (no padded copy is made).
+  template <bool kI8, bool kRowFold = false>
   __device__ static void fetch(Piece (&r)[kPerThread],
                                const uint8_t* __restrict__ img, long long m0,
                                long long n_mcu, unsigned nrx,
-                               long long row_bytes) {
+                               long long row_bytes, unsigned h = 0,
+                               unsigned my = 0) {
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const int q = threadIdx.x + i * kThreads;
@@ -356,9 +370,15 @@ struct Staging {
       if (mcu < n_mcu) {
         const unsigned row = (unsigned)mcu / nrx;
         const unsigned col = (unsigned)mcu - row * nrx;
+        long long src = (long long)row * F::kMcuH + y;
+        if constexpr (kRowFold) {
+          const unsigned image = row / my;
+          const unsigned p = (row - image * my) * F::kMcuH + y;
+          src = (long long)image * h + min(p, 2 * h - 1 - p);
+        }
         r[i] = __ldg(reinterpret_cast<const Piece*>(
-            img + ((long long)row * F::kMcuH + y) * row_bytes +
-            (long long)col * F::kRowBytes + part * kBytes));
+            img + src * row_bytes + (long long)col * F::kRowBytes +
+            part * kBytes));
         if constexpr (kI8) flip_bytes(r[i]);
       }
     }

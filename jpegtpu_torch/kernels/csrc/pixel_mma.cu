@@ -1,6 +1,6 @@
-// K1 (jt_pixel), K12 (jt_pixel_dc) and K13 (jt_pixel_i8): padded RGB image
-// -> int32 quantized zigzag coefficients of every MCU, round_half_away(tile
-// . M + bias), by the factored float64 tensor-core product of
+// K1 (jt_pixel), K12 (jt_pixel_dc) and K13 (jt_pixel_i8): RGB images ->
+// int32 quantized zigzag coefficients of every MCU, round_half_away(tile .
+// M + bias), by the factored float64 tensor-core product of
 // pixel_common.cuh (mma.sync m16n8k8 .f64 on the operator's two factors,
 // lum [192, 64] and chroma [G * 3, 128]), for the fused geometries of
 // jpegtpu_torch.kernels.fused_dctq.mcu_operator:
@@ -9,6 +9,14 @@
 //   4:2:2          8x16 MCU,  2 luma blocks, G = 64 1x2 groups, 256 outputs
 //   4:4:4          8x8 MCU,   1 luma block,  G = 64 1x1 groups, 192 outputs
 //   4:4:4s         8x8 MCU,   1 luma block,  G = 16 2x2 groups, 192 outputs
+//
+// The input is the tall view [n * h, W, 3] of n images of h rows each, my
+// = ceil(h / mh) MCU rows an image (the launcher's arguments h and my; an
+// image or batch padded to whole MCUs passes h = my * mh). Where h
+// is not whole MCUs (1080 rows at 4:2:0) the staging reads each image's
+// rows past h from their numpy-symmetric mirror (Staging::fetch with
+// kRowFold), so no padded copy is made first; on whole MCUs the mirror is
+// never taken and the same bytes are read.
 //
 // One kernel body, two compile-time options (both off for K1):
 //   kDc  K12 also writes the DC plane dc [n_mcu, 8] int32, dc[:, k] the
@@ -67,7 +75,8 @@ pixel_mma_kernel(const uint8_t* __restrict__ img,
                  const float* __restrict__ chroma,
                  const float* __restrict__ bias, int32_t* __restrict__ out,
                  int32_t* __restrict__ dc, long long n_mcu, unsigned nrx,
-                 long long row_bytes, long long n_tiles) {
+                 long long row_bytes, unsigned h, unsigned my,
+                 long long n_tiles) {
   using F = jt::Factored<kMh, kMw, kGroups, kTile>;
   using S = jt::Staging<F, kThreads>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -83,7 +92,8 @@ pixel_mma_kernel(const uint8_t* __restrict__ img,
   typename S::Piece r[S::kPerThread];
   long long tile = blockIdx.x;
   if (tile < n_tiles)
-    S::template fetch<kI8>(r, img, tile * kTile, n_mcu, nrx, row_bytes);
+    S::template fetch<kI8, true>(r, img, tile * kTile, n_mcu, nrx,
+                                     row_bytes, h, my);
   for (; tile < n_tiles; tile += gridDim.x) {
     __syncthreads();            // the last tile's product is done with px
 #pragma unroll
@@ -91,7 +101,8 @@ pixel_mma_kernel(const uint8_t* __restrict__ img,
       pieces[threadIdx.x + i * kThreads] = r[i];
     const long long next = tile + gridDim.x;
     if (next < n_tiles)
-      S::template fetch<kI8>(r, img, next * kTile, n_mcu, nrx, row_bytes);
+      S::template fetch<kI8, true>(r, img, next * kTile, n_mcu, nrx,
+                                       row_bytes, h, my);
     __syncthreads();
     jt::group_sums<F>(px, sums, threadIdx.x, kThreads);
     __syncthreads();
@@ -104,7 +115,8 @@ pixel_mma_kernel(const uint8_t* __restrict__ img,
 template <int kMh, int kMw, int kGroups, int kTile, bool kI8, bool kDc>
 int launch(const uint8_t* img, const float* lum, const float* chroma,
            const float* bias, int32_t* out, int32_t* dc, long long n_mcu,
-           long long nrx, long long row_bytes, cudaStream_t stream) {
+           long long nrx, long long row_bytes, long long h, long long my,
+           cudaStream_t stream) {
   using F = jt::Factored<kMh, kMw, kGroups, kTile>;
   using S = jt::Staging<F, kThreads>;
   const auto kernel = pixel_mma_kernel<kMh, kMw, kGroups, kTile, kI8, kDc>;
@@ -118,32 +130,42 @@ int launch(const uint8_t* img, const float* lum, const float* chroma,
   if (n_tiles < grid) grid = (int)n_tiles;
   kernel<<<grid, kThreads, S::kSmemBytes, stream>>>(
       img, lum, chroma, bias, out, dc, n_mcu, (unsigned)nrx, row_bytes,
-      n_tiles);
+      (unsigned)h, (unsigned)my, n_tiles);
   return (int)cudaGetLastError();
 }
 
-// The geometry's instance, after the checks every launcher makes.
+// The geometry's instance, after the checks every launcher makes. h and my
+// are one image's rows and MCU rows: n_mcu has to cover whole images of my
+// MCU rows of nrx MCUs, h has to be past (my - 1) * mh and at most my * mh,
+// and the pad my * mh - h shorter than h (numpy's symmetric mirror; its
+// edge case is refused).
 template <bool kI8, bool kDc>
 int dispatch(const uint8_t* img, const float* lum, const float* chroma,
              const float* bias, int32_t* out, int32_t* dc, long long n_mcu,
-             long long nrx, long long row_bytes, int mh, int mw, int groups,
-             cudaStream_t stream) {
+             long long nrx, long long row_bytes, long long h, long long my,
+             int mh, int mw, int groups, cudaStream_t stream) {
   if (n_mcu <= 0) return 0;
-  if (n_mcu >= (1LL << 31) || nrx >= (1LL << 31))
+  if (n_mcu >= (1LL << 31) || nrx <= 0 || nrx >= (1LL << 31) || my <= 0 ||
+      my >= (1LL << 31) || h >= (1LL << 30) || h <= (my - 1) * mh ||
+      h > my * mh || 2 * h <= my * mh || n_mcu % (my * nrx))
     return (int)cudaErrorInvalidValue;
   if (mh == 16 && mw == 16 && groups == 64)
     return launch<16, 16, 64, 32, kI8, kDc>(img, lum, chroma, bias, out, dc,
-                                            n_mcu, nrx, row_bytes, stream);
+                                            n_mcu, nrx, row_bytes, h, my,
+                                            stream);
   if constexpr (kI8) return (int)cudaErrorInvalidValue;   // 4:2:0 only
   if (mh == 8 && mw == 16 && groups == 64)
     return launch<8, 16, 64, 96, false, kDc>(img, lum, chroma, bias, out, dc,
-                                             n_mcu, nrx, row_bytes, stream);
+                                             n_mcu, nrx, row_bytes, h, my,
+                                             stream);
   if (mh == 8 && mw == 8 && groups == 64)
     return launch<8, 8, 64, 64, false, kDc>(img, lum, chroma, bias, out, dc,
-                                            n_mcu, nrx, row_bytes, stream);
+                                            n_mcu, nrx, row_bytes, h, my,
+                                            stream);
   if (mh == 8 && mw == 8 && groups == 16)
     return launch<8, 8, 16, 128, false, kDc>(img, lum, chroma, bias, out, dc,
-                                             n_mcu, nrx, row_bytes, stream);
+                                             n_mcu, nrx, row_bytes, h, my,
+                                             stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -152,35 +174,44 @@ int dispatch(const uint8_t* img, const float* lum, const float* chroma,
 // mh x mw is the MCU in pixels and groups the chroma groups G of its
 // operator: 16x16 / 64 (4:2:0), 8x16 / 64 (4:2:2), 8x8 / 64 (4:4:4) or
 // 8x8 / 16 (4:4:4s); any other geometry is refused before a launch. img is
-// the padded image at a 16-byte (8x8 MCUs: 8-byte) aligned address, row
-// pitch row_bytes = W * 3; lum [192, 64] and chroma [G * 3, 128] f32.
+// at a 16-byte (8x8 MCUs: 8-byte) aligned address, row pitch row_bytes =
+// W * 3: the tall view [n * h, W, 3] of n images of h rows, my = ceil(h /
+// mh) MCU rows each (whole MCUs: h = my * mh, a padded image or batch),
+// whose last MCU row the kernel completes with the mirrored rows; n_mcu
+// = n * my * nrx; lum [192, 64] and chroma [G * 3, 128] f32.
 extern "C" int jt_pixel(const uint8_t* img, const float* lum,
                         const float* chroma, const float* bias, int32_t* out,
                         long long n_mcu, long long nrx, long long row_bytes,
-                        int mh, int mw, int groups, cudaStream_t stream) {
+                        long long h, long long my, int mh, int mw,
+                        int groups, cudaStream_t stream) {
   return dispatch<false, false>(img, lum, chroma, bias, out, nullptr, n_mcu,
-                                nrx, row_bytes, mh, mw, groups, stream);
+                                nrx, row_bytes, h, my, mh, mw, groups,
+                                stream);
 }
 
 // jt_pixel, and the DC plane into dc [n_mcu, 8] int32.
 extern "C" int jt_pixel_dc(const uint8_t* img, const float* lum,
                            const float* chroma, const float* bias,
                            int32_t* out, int32_t* dc, long long n_mcu,
-                           long long nrx, long long row_bytes, int mh, int mw,
-                           int groups, cudaStream_t stream) {
+                           long long nrx, long long row_bytes, long long h,
+                           long long my, int mh, int mw, int groups,
+                           cudaStream_t stream) {
   return dispatch<false, true>(img, lum, chroma, bias, out, dc, n_mcu, nrx,
-                               row_bytes, mh, mw, groups, stream);
+                               row_bytes, h, my, mh, mw, groups, stream);
 }
 
 // jt_pixel at 4:2:0 on the centred int8 view [rows, 16, nrx, 48] of the
-// padded image: row_bytes = nrx * 48.
+// padded image: row_bytes = nrx * 48, one image of n_mcu / nrx whole MCU
+// rows.
 extern "C" int jt_pixel_i8(const int8_t* img, const float* lum,
                            const float* chroma, const float* bias,
                            int32_t* out, long long n_mcu, long long nrx,
                            long long row_bytes, cudaStream_t stream) {
   return dispatch<true, false>(reinterpret_cast<const uint8_t*>(img), lum,
                                chroma, bias, out, nullptr, n_mcu, nrx,
-                               row_bytes, 16, 16, 64, stream);
+                               row_bytes, nrx > 0 ? n_mcu / nrx * 16 : 0,
+                               nrx > 0 ? n_mcu / nrx : 0, 16, 16, 64,
+                               stream);
 }
 
 // The dynamic shared memory a block takes for a geometry (0 for one it

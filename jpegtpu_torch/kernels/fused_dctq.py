@@ -40,7 +40,12 @@ the chroma groups, on the float64 tensor cores; K1, K12 and K13 are one
 kernel body (K12 adds the DC plane to its epilogue, K13 XORs the int8
 view back to u8 as it stages it), and the fused K11 (``fused_pipeline``)
 runs the same staging and product into a shared int16 tile.
-``encode_blocks_factored_plain`` is the factored arithmetic in torch. The
+``encode_blocks_factored_plain`` is the factored arithmetic in torch.
+Where an image's height is not whole MCUs (1080 rows at 4:2:0) but its
+width is, K1 and K12 on the "nat" route read the unpadded image or batch
+and mirror the last MCU row's missing rows as they stage it
+(``row_fold``); every other route and shape, and the twins, pad first
+(``pad_mcus``, a gather). ``PADS`` counts the two. The
 wrappers get the factors of a CUDA operator from ``EncoderTables``, which
 factors its operator on the host when it is made; one that does not
 factor raises.
@@ -55,6 +60,7 @@ factored form and every kernel give the same integers.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import weakref
@@ -71,11 +77,13 @@ PIXEL = _build.Kernel("jt_pixel", [
     _build.PTR, _build.PTR, _build.PTR,               # img, lum, chroma
     _build.PTR, _build.PTR,                           # bias, out
     _build.I64, _build.I64, _build.I64,               # n_mcu, nrx, row_bytes
+    _build.I64, _build.I64,                           # image rows h, my
     _build.I32, _build.I32, _build.I32])              # MCU h, w, groups
 PIXEL_DC_PLANE = _build.Kernel("jt_pixel_dc", [
     _build.PTR, _build.PTR, _build.PTR,               # img, lum, chroma
     _build.PTR, _build.PTR, _build.PTR,               # bias, out, dc
     _build.I64, _build.I64, _build.I64,               # n_mcu, nrx, row_bytes
+    _build.I64, _build.I64,                           # image rows h, my
     _build.I32, _build.I32, _build.I32])              # MCU h, w, groups
 PIXEL_I8 = _build.Kernel("jt_pixel_i8", [
     _build.PTR, _build.PTR, _build.PTR,               # img (i8), lum, chroma
@@ -91,6 +99,21 @@ PIXEL_DMA = _build.Kernel("jt_pixel_dma", [
 PIXEL_DC = os.environ.get("JPEGTPU_PIXEL_DC", "0") != "0"
 DC_LANES = 8                                          # lanes of a DC row
 INT16_MAX = 32767
+
+
+@dataclasses.dataclass
+class PadCounts:
+    """How the pixel routes met images whose sides are not whole MCUs:
+    ``folds`` counts the launches of K1 or K12 that read each image's
+    mirrored last MCU row themselves (``row_fold``), ``gathers`` the pads
+    that made a padded copy by ``ops.pad_to_multiple``'s gather
+    (``pad_mcus``). A run sets both to 0 before the work it checks and
+    reads them after, as it does ``_build.Kernel.launches``."""
+    folds: int = 0
+    gathers: int = 0
+
+
+PADS = PadCounts()
 
 
 def fused_geometry(subsampling: str) -> Tuple[int, int, int, int]:
@@ -109,6 +132,26 @@ def uses_fused(h: int, w: int, subsampling: str) -> bool:
     if subsampling == "gray":
         return False
     return subsampling != "444s" or not (h % 8 or w % 8)
+
+
+def row_fold(h: int, w: int, subsampling: str) -> bool:
+    """Whether K1 and K12 read an h x w image of a fused mode unpadded,
+    mirroring its last MCU row's missing rows themselves: where h is not
+    whole MCUs, w is, and the pad is shorter than h (numpy's symmetric
+    mirror; ``ops.pad_to_multiple`` takes ``edge`` otherwise). Every other
+    shape, and every other route, is padded by ``pad_mcus``."""
+    mh, mw = ops.mcu_shape(subsampling)
+    ph = (-h) % mh
+    return ph != 0 and w % mw == 0 and ph < h
+
+
+def pad_mcus(img: torch.Tensor, subsampling: str) -> torch.Tensor:
+    """``ops.pad_to_multiple`` of [..., H, W, C] to whole MCUs of a mode,
+    counting in ``PADS.gathers`` the pads that gather a copy."""
+    mh, mw = ops.mcu_shape(subsampling)
+    if img.shape[-3] % mh or img.shape[-2] % mw:
+        PADS.gathers += 1
+    return ops.pad_to_multiple(img, (mh, mw))
 
 
 @functools.lru_cache(maxsize=32)
@@ -381,7 +424,7 @@ def encode_blocks_pairs_plain(img: torch.Tensor, m: torch.Tensor,
     [H, W, 3] -> int32 [nMCU, B*64] (block-major columns: block i's zigzag
     slots at [64i, 64i+64))."""
     mh, mw, _, _ = fused_geometry(subsampling)
-    return _tile_product(ops.pad_to_multiple(img, (mh, mw)), m, bias, mh, mw)
+    return _tile_product(pad_mcus(img, subsampling), m, bias, mh, mw)
 
 
 def encode_blocks_factored_plain(img: torch.Tensor, lum: torch.Tensor,
@@ -395,7 +438,7 @@ def encode_blocks_factored_plain(img: torch.Tensor, lum: torch.Tensor,
     times chroma, in float64, plus the bias, rounded half away."""
     mh, mw, _, _ = fused_geometry(subsampling)
     g, gy, gx = chroma_groups(subsampling)
-    x = mcu_tiles(ops.pad_to_multiple(img, (mh, mw)), mh, mw).to(torch.int64)
+    x = mcu_tiles(pad_mcus(img, subsampling), mh, mw).to(torch.int64)
     n = x.shape[0]
     luma = x.reshape(n, mh // 8, 8, mw // 8, 8, 3).permute(0, 1, 3, 2, 4, 5)
     sums = x.reshape(n, mh // gy, gy, mw // gx, gx, 3).sum(dim=(2, 4))
@@ -430,31 +473,61 @@ def operand_geometry(img: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
     return mh, mw, n_in, n_out
 
 
-def _launch_factored(kernel, padded, m, bias, subsampling, *extra,
-                     with_dc=False):
-    """Launch K1, K12, K13 or K14 on the factors of the CUDA operator m:
-    padded [H, W, 3] whole MCUs of a fused mode (u8, or K13's int8 view
-    reshaped to it, the same bytes), contiguous at a 16-byte aligned
-    address (the kernels' copies are 16 or 8 bytes), int32 [nMCU, B*64]
-    out and, with_dc, the DC plane [nMCU, DC_LANES] (returns (out, dc))."""
+def _launch_factored(kernel, img, m, bias, subsampling, *extra,
+                     with_dc=False, mcu_rows=None):
+    """Launch K1, K12, K13 or K14 on the factors of the CUDA operator m,
+    img [H, W, 3] of a fused mode (u8, or K13's int8 view reshaped to it,
+    the same bytes) contiguous at a 16-byte aligned address (the kernels'
+    copies are 16 or 8 bytes): whole MCUs, H // mh MCU rows (K13, K14);
+    or, for K1 and K12, the tall view of images of extra's h rows and my
+    MCU rows each, whose MCU rows ``mcu_rows`` counts. int32 [nMCU, B*64]
+    out and, with_dc, the DC plane [nMCU, DC_LANES] (returns (out,
+    dc))."""
     mh, mw, _, n_out = fused_geometry(subsampling)
-    padded = padded.contiguous()
+    img = img.contiguous()
     bias = bias.to(torch.float32).contiguous()
-    _build.check_cuda(padded, m.to(torch.float32).contiguous(), bias)
+    _build.check_cuda(img, m.to(torch.float32).contiguous(), bias)
     lum, chroma = cuda_factors(m, bias, subsampling)
-    _build.check_cuda(padded, lum, chroma, bias)
-    if padded.data_ptr() % 16:
-        padded = padded.clone()
-    h, w, _ = padded.shape
-    n_mcu = (h // mh) * (w // mw)
-    out = torch.empty((n_mcu, n_out), dtype=torch.int32,
-                      device=padded.device)
+    _build.check_cuda(img, lum, chroma, bias)
+    if img.data_ptr() % 16:
+        img = img.clone()
+    h, w, _ = img.shape
+    n_mcu = (h // mh if mcu_rows is None else mcu_rows) * (w // mw)
+    out = torch.empty((n_mcu, n_out), dtype=torch.int32, device=img.device)
     dc = [torch.empty((n_mcu, DC_LANES), dtype=torch.int32,
-                      device=padded.device)] if with_dc else []
-    kernel.launch(padded.device, padded.data_ptr(), lum.data_ptr(),
+                      device=img.device)] if with_dc else []
+    kernel.launch(img.device, img.data_ptr(), lum.data_ptr(),
                   chroma.data_ptr(), bias.data_ptr(), out.data_ptr(),
                   *(d.data_ptr() for d in dc), n_mcu, w // mw, w * 3, *extra)
     return (out, *dc) if with_dc else out
+
+
+def _pixel_nat(imgs: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
+               subsampling: str, with_dc: bool):
+    """The "nat" route on a batch u8 [n, H, W, 3] of a fused mode: image
+    i's MCUs in rows [i * nMCU, (i + 1) * nMCU) (with_dc: and the DC
+    plane). On a CPU tensor the plain twin on the batch padded to whole
+    MCUs. On the card one launch of K1 (with_dc: K12) for the batch: where
+    ``row_fold`` allows, on the unpadded batch viewed as [n * H, W, 3],
+    the kernel reading each image's mirrored last MCU row itself
+    (``PADS.folds``); else on the batch padded to whole MCUs
+    (``pad_mcus``), viewed as one tall image."""
+    n, h, w, _ = imgs.shape
+    mh, mw, _, _ = fused_geometry(subsampling)
+    my = -(-h // mh)
+    if imgs.device.type != "cpu" and row_fold(h, w, subsampling):
+        PADS.folds += 1
+    else:
+        imgs, h = pad_mcus(imgs, subsampling), my * mh
+    x = imgs.reshape(n * h, imgs.shape[2], imgs.shape[3])
+    operand_geometry(x, m, bias, subsampling)
+    if x.device.type == "cpu":
+        y = encode_blocks_pairs_plain(x, m, bias, subsampling)
+        return (y, dc_plane(y)) if with_dc else y
+    return _launch_factored(PIXEL_DC_PLANE if with_dc else PIXEL, x, m, bias,
+                            subsampling, h, my, mh, mw,
+                            chroma_groups(subsampling)[0], with_dc=with_dc,
+                            mcu_rows=n * my)
 
 
 def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
@@ -464,22 +537,17 @@ def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
     of the MCUs of a fused mode, in raster MCU order, with ``m``/``bias``
     that mode's ``mcu_operator`` (jpegtpu's
     ``encode_blocks_pallas_nat_pairs``). Launches ``csrc/pixel_mma.cu``
-    (``jt_pixel``, the factored product) on a CUDA tensor; runs the plain
-    twin on a CPU tensor.
+    (``jt_pixel``, the factored product) on a CUDA tensor, on the unpadded
+    image where ``row_fold`` allows; runs the plain twin on a CPU
+    tensor.
 
     with_dc: return (coeffs, dc), dc [nMCU, DC_LANES] int32 with dc[:, k]
     = coeffs[:, 64k] and the lanes >= B zero, from one launch of the
     DC-plane kernel (``jt_pixel_dc``, the same product). jpegtpu gives no
     plane (None) when its kernel's lane rule refuses the width; the port
     has no such rule."""
-    mh, mw, _, _ = operand_geometry(img, m, bias, subsampling)
-    if img.device.type == "cpu":
-        y = encode_blocks_pairs_plain(img, m, bias, subsampling)
-        return (y, dc_plane(y)) if with_dc else y
-    return _launch_factored(PIXEL_DC_PLANE if with_dc else PIXEL,
-                            ops.pad_to_multiple(img, (mh, mw)), m, bias,
-                            subsampling, mh, mw,
-                            chroma_groups(subsampling)[0], with_dc=with_dc)
+    operand_geometry(img, m, bias, subsampling)
+    return _pixel_nat(img[None], m, bias, subsampling, with_dc)
 
 
 def encode_blocks_matmul_pairs(img: torch.Tensor, m: torch.Tensor,
@@ -491,7 +559,7 @@ def encode_blocks_matmul_pairs(img: torch.Tensor, m: torch.Tensor,
     which leaves this product to XLA outside any Pallas kernel, so it is a
     library call here by design and launches no hand kernel."""
     mh, mw, _, _ = operand_geometry(img, m, bias, subsampling)
-    return _tile_product(ops.pad_to_multiple(img, (mh, mw)), m, bias, mh, mw)
+    return _tile_product(pad_mcus(img, subsampling), m, bias, mh, mw)
 
 
 def pixel_i8_plain(x8: torch.Tensor, m: torch.Tensor,
@@ -510,7 +578,7 @@ def i8_view(img: torch.Tensor) -> torch.Tensor:
     """The i8-view kernel's input: a u8 [H, W, 3] image padded to whole
     4:2:0 MCUs, XOR 0x80, viewed as int8 [rows, 16, nrx, 48] (a reshape
     of the padded image, jpegtpu's ``fused_dctq.py:216-217``)."""
-    padded = ops.pad_to_multiple(img, (16, 16))
+    padded = pad_mcus(img, "420")
     h, w, _ = padded.shape
     x8 = torch.bitwise_xor(padded, 0x80).view(torch.int8)
     return x8.reshape(h // 16, 16, w // 16, 48)
@@ -549,13 +617,13 @@ def encode_blocks_dma_pairs(img: torch.Tensor, m: torch.Tensor,
     twin ``encode_blocks_pairs_plain`` (the same function of the same
     input) runs. The other modes take the "xla" route, as jpegtpu's
     ``:306-309`` takes its XLA path."""
-    mh, mw, _, _ = operand_geometry(img, m, bias, subsampling)
+    operand_geometry(img, m, bias, subsampling)
     if subsampling != "420":
         return encode_blocks_matmul_pairs(img, m, bias, subsampling)
     if img.device.type == "cpu":
         return encode_blocks_pairs_plain(img, m, bias, subsampling)
-    return _launch_factored(PIXEL_DMA, ops.pad_to_multiple(img, (mh, mw)), m,
-                            bias, subsampling)
+    return _launch_factored(PIXEL_DMA, pad_mcus(img, subsampling), m, bias,
+                            subsampling)
 
 
 def encode_blocks(img: torch.Tensor, tables, subsampling: str) -> torch.Tensor:
@@ -569,12 +637,15 @@ def encode_blocks_batch(imgs: torch.Tensor, tables, subsampling: str,
                         pixel_path: str = "nat", with_dc: bool = False):
     """u8 [n, H, W, 3] (gray: [n, H, W]) -> int32 [n * nMCU, B*64]: image
     i's MCUs in rows [i * nMCU, (i + 1) * nMCU), each image as
-    ``encode_blocks`` codes it. For the fused product each image is padded
-    to whole MCUs and the batch is viewed as one image [n * Hp, Wp, 3],
-    whose MCUs in raster order are image 0's, then image 1's, and so on: one
-    launch of a pixel kernel for the batch, on the route ``pixel_path``
-    names ("nat", "dma" or "xla"; jpegtpu's ``_pixel_path_pairs``). The
-    staged ops take the batch axis as it is.
+    ``encode_blocks`` codes it. For the fused product the batch is one
+    launch of a pixel kernel, on the route ``pixel_path`` names ("nat",
+    "dma" or "xla"; jpegtpu's ``_pixel_path_pairs``), over one tall image
+    whose MCUs in raster order are image 0's, then image 1's, and so on.
+    On the card, "nat" reads the unpadded batch [n * H, W, 3] where
+    ``row_fold`` allows (K1 and K12 mirror each image's last MCU row
+    themselves); otherwise, and on the other routes and a CPU tensor,
+    each image is padded to whole MCUs (``pad_mcus``) and the batch viewed
+    as [n * Hp, Wp, 3]. The staged ops take the batch axis as it is.
 
     with_dc: return (coeffs, dc), dc the DC plane of the DC-plane kernel on
     the fused "nat" route, None on the others (the caller slices
@@ -584,11 +655,11 @@ def encode_blocks_batch(imgs: torch.Tensor, tables, subsampling: str,
                          f"got {pixel_path!r}")
     h, w = imgs.shape[1], imgs.shape[2]
     if uses_fused(h, w, subsampling):
-        padded = ops.pad_to_multiple(imgs, ops.mcu_shape(subsampling))
-        x = padded.reshape(-1, *padded.shape[2:])
         if pixel_path == "nat":
-            return encode_blocks_pairs(x, tables.m, tables.bias, subsampling,
-                                       with_dc=with_dc)
+            return _pixel_nat(imgs, tables.m, tables.bias, subsampling,
+                              with_dc)
+        padded = pad_mcus(imgs, subsampling)
+        x = padded.reshape(-1, *padded.shape[2:])
         route = (encode_blocks_dma_pairs if pixel_path == "dma"
                  else encode_blocks_matmul_pairs)
         y = route(x, tables.m, tables.bias, subsampling)

@@ -118,7 +118,7 @@ def fused_pixel_block_pack_pairs(img: torch.Tensor, tables, subsampling: str,
     if img.device.type == "cpu":
         return fused_pixel_block_pack_pairs_plain(img, tables, subsampling,
                                                   restart)
-    padded = ops.pad_to_multiple(img, (mh, mw)).contiguous()
+    padded = fused_dctq.pad_mcus(img, subsampling).contiguous()
     bias = tables.bias.to(torch.float32).contiguous()
     lum, chroma = fused_dctq.cuda_factors(tables.m, bias, subsampling)
     luts = [t.to(torch.int32).contiguous() for t in tables.luts()]

@@ -564,7 +564,8 @@ def test_dc_plane_kernel_writes_every_lane_and_no_more(dev, mode):
     fused_dctq.PIXEL_DC_PLANE.launch(
         dev, x.data_ptr(), lum.data_ptr(), chroma.data_ptr(),
         t.bias.data_ptr(), out.data_ptr(), dc.data_ptr(), n_mcu, nrx,
-        x.shape[1] * 3, mh, mw, fused_dctq.chroma_groups(mode)[0])
+        x.shape[1] * 3, x.shape[0], x.shape[0] // mh, mh, mw,
+        fused_dctq.chroma_groups(mode)[0])
     want = fused_dctq.encode_blocks_pairs_plain(img, t.m, t.bias, mode)
     assert torch.equal(out[:n_mcu], want)
     assert torch.equal(dc[:n_mcu], fused_dctq.dc_plane(want))
@@ -573,10 +574,13 @@ def test_dc_plane_kernel_writes_every_lane_and_no_more(dev, mode):
 
 
 def test_factored_launchers_refuse_what_they_do_not_take(dev):
-    """The launchers of K12 and K13 return K1's error codes, which the
+    """The launchers of K1, K12 and K13 return K1's error codes, which the
     wrapper raises, and launch nothing: a misaligned image
-    (cudaErrorMisalignedAddress, 716), a geometry they do not take or an
-    MCU count past 2^31 (cudaErrorInvalidValue, 1)."""
+    (cudaErrorMisalignedAddress, 716), a geometry they do not take, an
+    MCU count past 2^31, or image rows that K1 and K12 cannot fold: rows
+    past my MCU rows, rows not past my - 1 of them, a pad as long as the
+    image (numpy's edge case), or MCUs that are not whole images
+    (cudaErrorInvalidValue, 1)."""
     x = torch.zeros((32, 48, 3), dtype=torch.uint8, device=dev)
     t = EncoderTables.for_quality(90, "420", dev)
     lum, chroma = fused_dctq.cuda_factors(t.m, t.bias, "420")
@@ -584,11 +588,18 @@ def test_factored_launchers_refuse_what_they_do_not_take(dev):
     dc = torch.empty((6, 8), dtype=torch.int32, device=dev)
     operands = (lum.data_ptr(), chroma.data_ptr(), t.bias.data_ptr(),
             out.data_ptr())
-    k12, k13 = fused_dctq.PIXEL_DC_PLANE, fused_dctq.PIXEL_I8
+    k1, k12, k13 = (fused_dctq.PIXEL, fused_dctq.PIXEL_DC_PLANE,
+                    fused_dctq.PIXEL_I8)
     img, plane = x.data_ptr(), dc.data_ptr()
     cases = [
-        (k12, (img + 1, *operands, plane, 6, 3, 144, 16, 16, 64), 716),
-        (k12, (img, *operands, plane, 6, 3, 144, 16, 8, 64), 1),
+        (k12, (img + 1, *operands, plane, 6, 3, 144, 32, 2, 16, 16, 64),
+         716),
+        (k12, (img, *operands, plane, 6, 3, 144, 32, 2, 16, 8, 64), 1),
+        (k1, (img, *operands, 6, 3, 144, 40, 2, 16, 16, 64), 1),
+        (k1, (img, *operands, 6, 3, 144, 16, 2, 16, 16, 64), 1),
+        (k1, (img, *operands, 3, 3, 144, 8, 1, 16, 16, 64), 1),
+        (k12, (img, *operands, plane, 5, 3, 144, 24, 2, 16, 16, 64), 1),
+        (k12, (img, *operands, plane, 6, 3, 144, 24, 0, 16, 16, 64), 1),
         (k13, (img + 8, *operands, 6, 3, 144), 716),
         (k13, (img, *operands, 6, 3, 152), 716),
         (k13, (img, *operands, 1 << 31, 3, 144), 1)]
@@ -597,6 +608,70 @@ def test_factored_launchers_refuse_what_they_do_not_take(dev):
         with pytest.raises(RuntimeError, match=f"CUDA error {code} "):
             kernel.launch(dev, *args)
         assert kernel.launches == 0
+
+
+# (mode, image rows, images) whose rows are not whole MCUs while the
+# width is: 1080-row batches as the benchmark's, one row past and one short
+# of whole MCUs, a pad of 6 rows (1090) and of 8 (24 rows: one and a half
+# MCU rows) at 4:2:0, and odd heights at the 8-row geometries (4:4:4s is
+# launched directly: the encoder stages that mode's odd heights).
+FOLD_CASES = [("420", h, n) for h in (1080, 1081, 1087, 1090, 24)
+              for n in (1, 3, 8)] + [
+    (mode, h, 3) for mode in ("422", "444", "444s") for h in (1083, 17)]
+
+
+@pytest.mark.parametrize("with_dc", [False, True])
+@pytest.mark.parametrize("mode,h,n", FOLD_CASES)
+def test_row_fold_equals_the_padded_launch(dev, mode, h, n, with_dc):
+    """K1 (with_dc: K12) reading a batch of unpadded images and mirroring
+    each one's last MCU row itself, one launch and no gather, gives the
+    coefficients (and the DC plane) of ``pad_to_multiple`` and the launch
+    on the padded batch (whole MCUs: the mirror never taken), and of the
+    plain twin on each image."""
+    w = 1920 if h >= 1080 else 208
+    gen = torch.Generator(device=dev).manual_seed(h * 31 + n)
+    imgs = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    t = EncoderTables.for_quality(90, mode, dev)
+    assert fused_dctq.row_fold(h, w, mode)
+    fused_dctq.PADS.folds = fused_dctq.PADS.gathers = 0
+    got, launches = _path_launches(
+        lambda: fused_dctq._pixel_nat(imgs, t.m, t.bias, mode, with_dc))
+    assert (fused_dctq.PADS.folds, fused_dctq.PADS.gathers) == (1, 0)
+    assert launches["pixel_dc" if with_dc else "pixel"] == 1
+    padded = ops.pad_to_multiple(imgs, ops.mcu_shape(mode))
+    want = fused_dctq.encode_blocks_pairs(
+        padded.reshape(-1, *padded.shape[2:]), t.m, t.bias, mode,
+        with_dc=with_dc)
+    plain = torch.cat([fused_dctq.encode_blocks_pairs_plain(
+        im, t.m, t.bias, mode) for im in imgs])
+    if with_dc:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0], plain)
+        assert torch.equal(got[1], fused_dctq.dc_plane(plain))
+    else:
+        assert torch.equal(got, want) and torch.equal(got, plain)
+
+
+def test_batch_of_1080p_folds_and_equals_cpu_path(dev):
+    """device_encode_batch of 8 x 1920x1080 at 4:2:0 q90 rows: K1 folds
+    the rows (no gather, one launch) and the scan equals the plain-twin
+    pipeline's on the CPU."""
+    from jpegtpu_torch.encoder import device_encode_batch
+    imgs = torch.from_numpy(np.stack([_random(1080, 1920, s)
+                                      for s in range(8)]))
+    bytes_of = {}
+    for d in (dev, torch.device("cpu")):
+        t = EncoderTables.for_quality(90, "420", d)
+        fused_dctq.PADS.folds = fused_dctq.PADS.gathers = 0
+        (buf, total, starts), launches = _path_launches(
+            lambda: device_encode_batch(imgs.to(d), t, "420", 120))
+        if d.type == "cuda":
+            assert (fused_dctq.PADS.folds, fused_dctq.PADS.gathers) == (1, 0)
+            assert launches["pixel"] == 1
+        bytes_of[d.type] = (buf[:int(total)].cpu(), starts.cpu())
+    assert torch.equal(bytes_of["cuda"][0], bytes_of["cpu"][0])
+    assert torch.equal(bytes_of["cuda"][1], bytes_of["cpu"][1])
 
 
 @pytest.mark.parametrize("kind", ["dense", "sparse"])
