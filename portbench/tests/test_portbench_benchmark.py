@@ -93,12 +93,20 @@ def test_config_entries_match_their_files():
         assert cfg["reduced"] == entry["reduced"]
 
 
-@pytest.mark.parametrize("stage", ["pixel", "entropy"])
+@pytest.mark.parametrize("stage", harness.Bench().stages())
 def test_stage_files(stage):
+    """Every stage file: its name, the work it stands for, and kernel
+    names that no other stage's file shares, so that no device op counts
+    in two stages."""
     bench = harness.Bench()
     s = bench.stage(stage)
-    assert s["name"] == stage and s["kernels"]
-    assert stage in bench.stages()
+    assert s["name"] == stage and s["work"]
+    assert s["kernels"] and all(isinstance(k, str) and k
+                                for k in s["kernels"])
+    others = [k for o in bench.stages() if o != stage
+              for k in bench.stage(o)["kernels"]]
+    assert not [(k, o) for k in s["kernels"] for o in others
+                if k in o or o in k]
 
 
 def test_new_files_are_found_with_no_edit(tmp_path):

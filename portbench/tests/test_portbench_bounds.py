@@ -104,14 +104,15 @@ def _staged_run(tmp_path):
 
 
 def test_unstaged_ops_are_the_ones_no_stage_names(tmp_path):
-    """Device time that no stage file claims is read apart: the padding
-    glue is the pixel stage's, a kernel no file names is nobody's."""
+    """Device time that no stage file claims is read apart: torch glue,
+    such as a padding gather, and a kernel no file names are nobody's."""
     run = _staged_run(tmp_path)
-    assert run.trace.busy_s(run.stage_ops("pixel")) == pytest.approx(30e-6)
+    assert run.trace.busy_s(run.stage_ops("pixel")) == pytest.approx(20e-6)
     assert [op.name for op in run.unstaged_ops()] == [
+        "void at::native::_scatter_gather_elementwise_kernel<128, 8>(int)",
         "void renamed_kernel(int)"]
     assert run.bench.reader("unstaged_ms.device")(run) == pytest.approx(
-        7e-3 / 2)
+        17e-3 / 2)
 
 
 def test_idle_share_is_at_the_untraced_pace(tmp_path):
