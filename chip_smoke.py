@@ -325,9 +325,9 @@ def main() -> int:
     from jpegtpu_torch.encoder import (EncoderTables, device_encode,
                                        device_encode_batch, geometry)
     from jpegtpu_torch.entropy import scan
-    from jpegtpu_torch.kernels import (_build, compact, entropy_oracles,
-                                       entropy_pack, fused_dctq,
-                                       fused_pipeline)
+    from jpegtpu_torch.kernels import (_build, chain, compact,
+                                       entropy_oracles, entropy_pack,
+                                       fused_dctq, fused_pipeline)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -942,8 +942,10 @@ def main() -> int:
         return k if isinstance(k, tuple) else (k,)
 
     def counted(fn):
-        """fn() with every launch count set to 0 just before it; (its
-        result, the launches it made per kernel)."""
+        """fn() with every launch count set to 0 just before it (the
+        chain's, ``chain.CHAIN``, too); (its result, the launches it made
+        per kernel)."""
+        chain.CHAIN.launches = 0
         for _, k, _, _ in kernels:
             for kh in handles(k):
                 kh.launches = 0
@@ -966,9 +968,17 @@ def main() -> int:
                                  restart_interval=restart_interval, **f))))
         label = (f"{w}x{h} q{QUALITY} {sub} restart {restart_interval!r}"
                  f"{selectors(kw)}")
-        print(f"[e2e] encode {label}: {len(jpg)} bytes, launches {counts}")
-        if counts != want:
-            raise AssertionError(f"{label}: launches {counts}, want {want}")
+        # The default route enqueues its kernels from one native call.
+        want_chain = int(sub in fused_pipeline.FUSED_MODES
+                         and kw.get("device_stuff", True) and not
+                         kw.get("fuse_bp") and
+                         kw.get("pixel_path", "nat") == "nat")
+        print(f"[e2e] encode {label}: {len(jpg)} bytes, launches {counts}, "
+              f"chain calls {chain.CHAIN.launches}")
+        if counts != want or chain.CHAIN.launches != want_chain:
+            raise AssertionError(f"{label}: launches {counts}, chain calls "
+                                 f"{chain.CHAIN.launches}, want {want}, "
+                                 f"{want_chain}")
         if jpg != encode_plain(image, sub, restart_interval,
                                kw.get("device_stuff", True)):
             raise AssertionError(f"{label}: bytes differ from the "
@@ -1010,7 +1020,11 @@ def main() -> int:
         label = (f"encode_batch {BATCH} x {GOLDEN_SHAPE[1]}x"
                  f"{GOLDEN_SHAPE[0]} q{QUALITY} 420 rows{selectors(bkw)}")
         print(f"[e2e] {label}: {sum(map(len, files))} bytes, launches "
-              f"{counts}, row folds / pad gathers {pads}")
+              f"{counts}, chain calls {chain.CHAIN.launches}, row folds / "
+              f"pad gathers {pads}")
+        if chain.CHAIN.launches != int(ds and not fuse):
+            raise AssertionError(f"{label}: chain calls "
+                                 f"{chain.CHAIN.launches}")
         if pads != ((0, 1) if fuse else (1, 0)):
             raise AssertionError(f"{label}: row folds / pad gathers {pads}")
         want = dict.fromkeys(counts, 0)

@@ -27,7 +27,12 @@ them on the default path:
     or, without device_stuff,
     compaction  compact.compact_segments   -> the segments back to back
 
-and the host fetches exactly the scan's bytes (without device_stuff: the
+On the default route (CUDA tensors, "nat", no fuse_bp, device_stuff, a
+mode of 4:2:0, 4:2:2 or 4:4:4, whole-MCU widths) a call runs the pixel
+kernel, the block pack, the segment merge and the stuffing from a plan
+cached per shape on the tables, in one native call (``kernels/chain.py``);
+every other call runs the wrappers above one by one. Either way the host
+fetches exactly the scan's bytes (without device_stuff: the
 byte counts, then exactly the compacted bytes, which it stuffs with
 ``native.stuff_assemble_contig``) and wraps them in the JFIF headers. A
 batch of same-shaped images runs one program whose kernels each launch
@@ -42,6 +47,7 @@ single segment).
 
 from __future__ import annotations
 
+import collections
 import warnings
 from typing import List, Sequence, Tuple
 
@@ -54,7 +60,7 @@ from jpegtpu_torch.config import EncoderConfig
 from jpegtpu_torch.container import jfif
 from jpegtpu_torch.core import ops, tables
 from jpegtpu_torch.entropy import huffman_tables as ht
-from jpegtpu_torch.kernels import (compact, entropy_pack, fused_dctq,
+from jpegtpu_torch.kernels import (chain, compact, entropy_pack, fused_dctq,
                                    fused_pipeline)
 
 
@@ -98,7 +104,9 @@ class EncoderTables(nn.Module):
     (``fused_dctq.coefficient_bound``), which the fused kernel's int16 tile
     needs under 32,768. Wherever the module moves, it records both as those
     of ``m`` for the factored pixel kernels and the fused kernel
-    (``fused_dctq.remember_factors``)."""
+    (``fused_dctq.remember_factors``). ``plans`` holds the default route's
+    plans of the ``chain.KEPT`` call shapes used last (``chain.Plan``);
+    moving the module drops them."""
 
     def __init__(self, m: torch.Tensor, bias: torch.Tensor,
                  dc_codes: torch.Tensor, dc_lens: torch.Tensor,
@@ -122,6 +130,7 @@ class EncoderTables(nn.Module):
                 m_host, self.bias)
         self.register_buffer("lum", lum)
         self.register_buffer("chroma", chroma)
+        self.plans: collections.OrderedDict = collections.OrderedDict()
         self._remember()
 
     def _remember(self) -> None:
@@ -132,8 +141,15 @@ class EncoderTables(nn.Module):
 
     def _apply(self, fn, *args, **kwargs):
         out = super()._apply(fn, *args, **kwargs)
+        self.plans = collections.OrderedDict()
         self._remember()
         return out
+
+    def __getstate__(self):
+        # A plan holds the device pointers of these tensors: a copy (deepcopy,
+        # pickle) builds its own.
+        return {**super().__getstate__(),
+                "plans": collections.OrderedDict()}
 
     @classmethod
     def from_numpy(cls, m: np.ndarray, bias: np.ndarray,
@@ -235,6 +251,44 @@ def _segments(imgs: torch.Tensor, tables: EncoderTables, subsampling: str,
     return entropy_pack.seg_merge_mcu(mwords, mlens, n_seg, mps)
 
 
+def _planned(imgs: torch.Tensor, tables: EncoderTables, subsampling: str,
+             restart: int, batch: bool) -> chain.Plan | None:
+    """The chain's plan for a call on the default route, kept in
+    ``tables.plans`` by shape (the ``chain.KEPT`` used last) and built
+    where it is missing or stale; None where the call is not the chain's
+    (``chain.plan``) or imgs cannot be read where it lies
+    (``Plan.admits``)."""
+    key = (batch, imgs.shape, subsampling, restart, fused_dctq.PIXEL_DC)
+    plans = tables.plans
+    p = plans.get(key)
+    if p is not None and p.current(tables):
+        if not p.admits(imgs):
+            return None
+        plans.move_to_end(key)
+        chain.PLANS.hits += 1
+        return p
+    if imgs.dim() != 3 + batch:
+        return None
+    my, mx = ops.mcu_grid(imgs.shape[-3], imgs.shape[-2], subsampling)
+    if batch:
+        try:
+            spi = batch_segments(my * mx, restart)
+        except BatchGeometryError:
+            return None
+        n_seg, mps = imgs.shape[0] * spi, restart
+    else:
+        n_seg, mps = geometry(my * mx, restart)
+        spi = n_seg
+    p = chain.plan(imgs, tables, subsampling, restart, n_seg, mps, spi, batch)
+    if p is not None:
+        plans[key] = p
+        plans.move_to_end(key)
+        if len(plans) > chain.KEPT:
+            plans.popitem(last=False)
+        chain.PLANS.built += 1
+    return p
+
+
 def device_encode(img: torch.Tensor, tables: EncoderTables, subsampling: str,
                   restart: int, device_stuff: bool = True,
                   pixel_path: str = "nat", fuse_bp: bool = False
@@ -243,14 +297,22 @@ def device_encode(img: torch.Tensor, tables: EncoderTables, subsampling: str,
     program's output: with device_stuff, (u8 scan buffer, total bytes
     scalar); without, (u8 compacted stream, nbytes [n_seg] int64), which
     the host stuffs (``native.stuff_assemble_contig``). pixel_path and
-    fuse_bp choose the kernels (``_segments``), never the bytes."""
+    fuse_bp choose the kernels (``_segments``), never the bytes; on the
+    default route one native call runs them from a cached plan
+    (``_planned``), else each wrapper runs in turn (counted in
+    ``chain.PLANS.fallbacks``)."""
+    if device_stuff and pixel_path == "nat" and not fuse_bp:
+        plan = _planned(img, tables, subsampling, restart, False)
+        if plan is not None:
+            return plan.encode(img)
+    chain.PLANS.fallbacks += 1
     my, mx = ops.mcu_grid(img.shape[0], img.shape[1], subsampling)
     n_seg, mps = geometry(my * mx, restart)
     seg_words, seg_bits = _segments(img[None], tables, subsampling, restart,
                                     n_seg, mps, pixel_path, fuse_bp)
     if not device_stuff:
         return compact.compact_segments(seg_words, seg_bits)
-    if n_seg > 1:
+    if compact.stuff_launcher(n_seg, False) is compact.STUFF:
         return compact.compact_segments_stuffed_grouped(seg_words, seg_bits,
                                                         restart)[:2]
     return compact.compact_segments_stuffed(seg_words, seg_bits, restart)
@@ -270,7 +332,13 @@ def device_encode_batch(imgs: torch.Tensor, tables: EncoderTables,
     (u8 scan buffer, total bytes scalar, each image's first byte [n]
     int64): the images' scans back to back, RST markers numbered from 0 in
     each; without, (u8 compacted stream, nbytes [n, segments per image]
-    int64)."""
+    int64). The default route runs from a cached plan, as
+    ``device_encode``'s."""
+    if device_stuff and pixel_path == "nat" and not fuse_bp:
+        plan = _planned(imgs, tables, subsampling, restart, True)
+        if plan is not None:
+            return plan.encode(imgs)
+    chain.PLANS.fallbacks += 1
     n = imgs.shape[0]
     my, mx = ops.mcu_grid(imgs.shape[1], imgs.shape[2], subsampling)
     spi = batch_segments(my * mx, restart)

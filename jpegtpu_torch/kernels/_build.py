@@ -34,7 +34,7 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("pixel_mma.cu", "block_pack.cu", "seg_merge.cu", "stuff.cu",
-           "compact.cu", "fused_px_bp.cu", "pixel_dma.cu")
+           "compact.cu", "fused_px_bp.cu", "pixel_dma.cu", "chain.cu")
 # Headers the sources include; part of the library's hash.
 HEADERS = ("pixel_common.cuh", "block_pack.cuh", "lookback.cuh", "grid.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -76,6 +76,14 @@ def stuff_scratch_words(n_seg: int, seg_words: int) -> int:
     return STUFF_SCRATCH_HEAD + stuff_tiles(n_seg, seg_words)
 
 
+def stuff_launcher(n_seg: int, grouped: bool) -> _build.Kernel:
+    """The stuffing launcher of a scan of n_seg segments: one chain of 4 KB
+    tiles (K5, ``compact_segments_stuffed``) for a single image's one
+    segment, else the segments' (K4, ``compact_segments_stuffed_grouped``),
+    which a batch (grouped) always takes."""
+    return STUFF_CHUNKS if n_seg == 1 and not grouped else STUFF
+
+
 @functools.lru_cache(maxsize=64)
 def marker_table(n_seg: int, restart: int, segs_per_image: int | None = None,
                  device: torch.device | str = "cpu") -> torch.Tensor:

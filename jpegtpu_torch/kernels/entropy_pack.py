@@ -233,6 +233,13 @@ def _luts_ok(luts) -> bool:
                                               (2, 256)]
 
 
+def dc_strides(g: int, dc_width: int | None = None) -> Tuple[int, int]:
+    """(MCU stride, block step) at which K2 reads the DC of each block: the
+    coefficients [nM, g*64] themselves (slot 0 of each block) where
+    dc_width is None, else a DC plane [nM, dc_width]."""
+    return (64 * g, 64) if dc_width is None else (dc_width, 1)
+
+
 def _mcu_outputs(nm: int, g: int, device: torch.device
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's outputs, uninitialised: streams [nM, g*52+2], lengths [nM]. A g
@@ -287,7 +294,7 @@ def block_pack_mcu_segments(coeffs: torch.Tensor, n_luma: int, restart: int,
             or restart < 0 or (dc is not None and (
                 src.dim() != 2 or src.shape[0] != nm or src.shape[1] < g))):
         raise ValueError("block_pack_mcu_segments: bad input shapes")
-    strides = (gx64, 64) if dc is None else (src.shape[1], 1)
+    strides = dc_strides(g, None if dc is None else src.shape[1])
     mwords, mlens = _mcu_outputs(nm, g, coeffs.device)
     BLOCK_PACK_SEGMENTS.launch(
         coeffs.device, coeffs.data_ptr(), src.data_ptr(), *strides,
@@ -412,6 +419,16 @@ def seg_merge_scratch_words(n_seg: int, mps: int, zero_tail: bool = False,
             seg_merge_tiles(n_seg, mps, seg_words, zero_tail, split_rows)[0])
 
 
+def seg_merge_sizes(n_seg: int, mps: int, mw: int
+                    ) -> Tuple[int, int, bool]:
+    """(segment words, scratch words, whether a segment may reach 2^31
+    bits) of K3 on n_seg segments of mps MCU streams of mw words: the
+    last, where a run must check ``seg_bits`` for the kernel's overflow
+    mark."""
+    return (segment_words(n_seg, mps, mw),
+            seg_merge_scratch_words(n_seg, mps), mps * 32 * mw >= 1 << 31)
+
+
 def seg_merge_mcu(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
                   mps: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """MCU streams [nM, W] int32 (+ bit lengths [nM]) -> (segment streams
@@ -434,19 +451,18 @@ def seg_merge_mcu(mwords: torch.Tensor, mlens: torch.Tensor, n_seg: int,
     mlens = mlens.to(torch.int32).contiguous()
     _build.check_cuda(mwords, mlens)
     dev = mwords.device
-    seg_w = segment_words(n_seg, mps, mw)
+    seg_w, n_scratch, may_overflow = seg_merge_sizes(n_seg, mps, mw)
     out = torch.empty((n_seg, seg_w), dtype=torch.int32, device=dev)
     seg_bits = torch.empty((n_seg,), dtype=torch.int32, device=dev)
     if n_seg == 0:
         return out, seg_bits
-    n_scratch = seg_merge_scratch_words(n_seg, mps)
     scratch = (torch.empty(n_scratch, dtype=torch.int64, device=dev)
                if n_scratch else None)
     SEG_MERGE.launch(dev, mwords.data_ptr(), mlens.data_ptr(),
                      out.data_ptr(), seg_bits.data_ptr(),
                      scratch.data_ptr() if n_scratch else None, nm, n_seg,
                      mps, mw, seg_w)
-    if mps * 32 * mw >= 1 << 31 and bool((seg_bits < 0).any()):
+    if may_overflow and bool((seg_bits < 0).any()):
         raise ValueError("a segment must hold fewer than 2^31 bits")
     return out, seg_bits
 

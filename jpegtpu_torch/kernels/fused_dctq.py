@@ -473,6 +473,21 @@ def operand_geometry(img: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
     return mh, mw, n_in, n_out
 
 
+def factored_sizes(mcu_rows: int, w: int, mw: int) -> Tuple[int, int, int]:
+    """(n_mcu, nrx, row_bytes): the sizes every factored pixel kernel takes
+    after its pointers, for mcu_rows MCU rows of a u8 [., w, 3] image of
+    mw-wide MCUs."""
+    return mcu_rows * (w // mw), w // mw, w * 3
+
+
+def nat_view(h: int, subsampling: str) -> Tuple[int, ...]:
+    """(h, my, mh, mw, groups): the sizes K1 and K12 take after
+    ``factored_sizes`` for a tall view of images of h rows (whole MCUs, or
+    a height ``row_fold`` takes), my MCU rows each, of a fused mode."""
+    mh, mw, _, _ = fused_geometry(subsampling)
+    return h, -(-h // mh), mh, mw, chroma_groups(subsampling)[0]
+
+
 def _launch_factored(kernel, img, m, bias, subsampling, *extra,
                      with_dc=False, mcu_rows=None):
     """Launch K1, K12, K13 or K14 on the factors of the CUDA operator m,
@@ -492,13 +507,14 @@ def _launch_factored(kernel, img, m, bias, subsampling, *extra,
     if img.data_ptr() % 16:
         img = img.clone()
     h, w, _ = img.shape
-    n_mcu = (h // mh if mcu_rows is None else mcu_rows) * (w // mw)
+    sizes = factored_sizes(h // mh if mcu_rows is None else mcu_rows, w, mw)
+    n_mcu = sizes[0]
     out = torch.empty((n_mcu, n_out), dtype=torch.int32, device=img.device)
     dc = [torch.empty((n_mcu, DC_LANES), dtype=torch.int32,
                       device=img.device)] if with_dc else []
     kernel.launch(img.device, img.data_ptr(), lum.data_ptr(),
                   chroma.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                  *(d.data_ptr() for d in dc), n_mcu, w // mw, w * 3, *extra)
+                  *(d.data_ptr() for d in dc), *sizes, *extra)
     return (out, *dc) if with_dc else out
 
 
@@ -513,21 +529,19 @@ def _pixel_nat(imgs: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
     (``PADS.folds``); else on the batch padded to whole MCUs
     (``pad_mcus``), viewed as one tall image."""
     n, h, w, _ = imgs.shape
-    mh, mw, _, _ = fused_geometry(subsampling)
-    my = -(-h // mh)
     if imgs.device.type != "cpu" and row_fold(h, w, subsampling):
         PADS.folds += 1
     else:
-        imgs, h = pad_mcus(imgs, subsampling), my * mh
-    x = imgs.reshape(n * h, imgs.shape[2], imgs.shape[3])
+        imgs = pad_mcus(imgs, subsampling)
+    view = nat_view(imgs.shape[1], subsampling)
+    x = imgs.reshape(n * view[0], imgs.shape[2], imgs.shape[3])
     operand_geometry(x, m, bias, subsampling)
     if x.device.type == "cpu":
         y = encode_blocks_pairs_plain(x, m, bias, subsampling)
         return (y, dc_plane(y)) if with_dc else y
     return _launch_factored(PIXEL_DC_PLANE if with_dc else PIXEL, x, m, bias,
-                            subsampling, h, my, mh, mw,
-                            chroma_groups(subsampling)[0], with_dc=with_dc,
-                            mcu_rows=n * my)
+                            subsampling, *view, with_dc=with_dc,
+                            mcu_rows=n * view[1])
 
 
 def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,

@@ -10,7 +10,7 @@ import re
 
 import pytest
 
-from jpegtpu_torch.kernels import (_build, compact, entropy_oracles,
+from jpegtpu_torch.kernels import (_build, chain, compact, entropy_oracles,
                                    entropy_pack, fused_dctq, fused_pipeline)
 
 # Every Kernel the port declares, by launcher symbol.
@@ -81,10 +81,11 @@ def test_launcher_abi_matches_its_declaration(symbol):
 
 def test_every_launcher_is_declared():
     """Every extern "C" function that takes a stream is a Kernel of the
-    port (the others report sizes)."""
+    port, or the chain that launches several of them (``chain.CHAIN``;
+    the others report sizes)."""
     launchers = {s for s, (_, params) in _launchers().items()
                  if params and params[-1].split()[0] == "cudaStream_t"}
-    assert launchers == set(KERNELS)
+    assert launchers == set(KERNELS) | {chain.CHAIN.symbol}
 
 
 def test_fused_launcher_takes_the_factors():

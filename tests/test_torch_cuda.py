@@ -20,7 +20,8 @@ import jpegtpu_torch
 from jpegtpu_torch.core import ops
 from jpegtpu_torch.encoder import EncoderTables
 from jpegtpu_torch.entropy import scan
-from jpegtpu_torch.kernels import (_build, compact, entropy_oracles,
+from jpegtpu_torch import encoder
+from jpegtpu_torch.kernels import (_build, chain, compact, entropy_oracles,
                                    entropy_pack, fused_dctq, fused_pipeline)
 from test_torch_stuff import CHUNK_CASES, chunk_case
 
@@ -1514,3 +1515,76 @@ def test_k3_output_feeds_the_stuffing_and_compaction(dev):
     assert torch.equal(nb, want_nb)
     n = int(want_nb.sum())
     assert torch.equal(buf[:n], want[:n])
+
+
+# (shape, mode, restart, PIXEL_DC): the benchmark cells' geometries (4K
+# 4:2:0 rows, 8 x 1080p 4:2:0 rows, 4K 4:4:4 rows), 4:2:2, restart 1, 0 and
+# 7 (a ragged last segment), a single 1080-row frame, whose last MCU row K1
+# folds, and the DC-plane route (K12) on rows, restart 7 and the batch.
+PLAN_GEOMETRIES = [
+    ((2160, 3840, 3), "420", 240, False),
+    ((8, 1080, 1920, 3), "420", 120, False),
+    ((2160, 3840, 3), "444", 480, False),
+    ((2160, 3840, 3), "422", 240, False),
+    ((2160, 3840, 3), "420", 1, False), ((2160, 3840, 3), "420", 0, False),
+    ((2160, 3840, 3), "420", 7, False),
+    ((1080, 1920, 3), "420", 120, False),
+    ((2160, 3840, 3), "420", 240, True), ((2160, 3840, 3), "420", 7, True),
+    ((8, 1080, 1920, 3), "420", 120, True),
+]
+
+
+@pytest.mark.parametrize("shape,mode,restart,pixel_dc", PLAN_GEOMETRIES)
+def test_planned_chain_equals_per_kernel_path_and_reference(
+        dev, monkeypatch, shape, mode, restart, pixel_dc):
+    """The default route from its plan (``chain``): one native call a call,
+    each kernel's launch count (K12's with PIXEL_DC) up by one as the
+    chain reports it, the plan built once and then hit; its scan (and a
+    batch's offsets) byte for byte the per-kernel path's, taken by the
+    same input at an address one byte off, and the plain reference's
+    (``portbench/reference``). Each call's outputs are its own: the first
+    call's scan is intact after the second."""
+    from portbench import frames
+    from portbench.reference import jpeg
+    monkeypatch.setattr(fused_dctq, "PIXEL_DC", pixel_dc)
+    batch = len(shape) == 4
+    n, h, w = (shape[0] if batch else 1), shape[-3], shape[-2]
+    cfg = {"canvas": [h, w], "height": h, "width": w, "batch": n,
+           "distinct": 1, "noise_sd": 12.0}
+    x = frames.make_inputs(cfg, 2**31 + 18 + restart, dev)[0]
+    t = EncoderTables.for_quality(90, mode, dev)
+    fn = encoder.device_encode_batch if batch else encoder.device_encode
+    kernels = (fused_dctq.PIXEL, fused_dctq.PIXEL_DC_PLANE,
+               entropy_pack.BLOCK_PACK_SEGMENTS, entropy_pack.SEG_MERGE,
+               compact.STUFF, compact.STUFF_CHUNKS, chain.CHAIN)
+    for k in kernels:
+        k.launches = 0
+    chain.PLANS.built = chain.PLANS.hits = chain.PLANS.fallbacks = 0
+    fused_dctq.PADS.folds = fused_dctq.PADS.gathers = 0
+    planned = [fn(x, t, mode, restart) for _ in range(2)]
+    one_seg = restart == 0 and not batch
+    assert [k.launches for k in kernels] == [
+        2 * (not pixel_dc), 2 * pixel_dc, 2, 2, 2 * (not one_seg),
+        2 * one_seg, 2]
+    assert (fused_dctq.PADS.folds, fused_dctq.PADS.gathers) == (
+        2 * fused_dctq.row_fold(h, w, mode), 0)
+    assert (chain.PLANS.built, chain.PLANS.hits,
+            chain.PLANS.fallbacks) == (1, 1, 0)
+    off = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)[1:]
+    y = off.view(x.shape)
+    y.copy_(x)
+    per_kernel = fn(y, t, mode, restart)
+    assert chain.PLANS.fallbacks == 1
+
+    def scan_of(out):
+        total = int(out[1])
+        return (out[0][:total].cpu().numpy().tobytes(),
+                out[2].tolist() if batch else None)
+
+    imgs = x if batch else x[None]
+    scans = [jpeg.scan(im, 90, mode, restart) for im in imgs]
+    starts = np.cumsum([0] + [len(s) for s in scans[:-1]]).tolist()
+    want = (b"".join(scans), starts if batch else None)
+    assert planned[0][0].data_ptr() != planned[1][0].data_ptr()
+    for out in (*planned, per_kernel):
+        assert scan_of(out) == want
