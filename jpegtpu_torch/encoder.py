@@ -28,10 +28,11 @@ them on the default path:
     compaction  compact.compact_segments   -> the segments back to back
 
 On the default route (CUDA tensors, "nat", no fuse_bp, device_stuff, a
-mode of 4:2:0, 4:2:2 or 4:4:4, whole-MCU widths) a call runs the pixel
-kernel, the block pack, the segment merge and the stuffing from a plan
-cached per shape on the tables, in one native call (``kernels/chain.py``);
-every other call runs the wrappers above one by one. Either way the host
+mode of 4:2:0, 4:2:2 or 4:4:4) a call runs the pixel kernel, the block
+pack, the segment merge and the stuffing from a plan cached per shape on
+the tables, in one native call (``kernels/chain.py``; ``_chained``
+decides which calls); every other call runs the wrappers above one by
+one. Either way the host
 fetches exactly the scan's bytes (without device_stuff: the
 byte counts, then exactly the compacted bytes, which it stuffs with
 ``native.stuff_assemble_contig``) and wraps them in the JFIF headers. A
@@ -60,8 +61,8 @@ from jpegtpu_torch.config import EncoderConfig
 from jpegtpu_torch.container import jfif
 from jpegtpu_torch.core import ops, tables
 from jpegtpu_torch.entropy import huffman_tables as ht
-from jpegtpu_torch.kernels import (chain, compact, entropy_pack, fused_dctq,
-                                   fused_pipeline)
+from jpegtpu_torch.kernels import (_build, chain, compact, entropy_pack,
+                                   fused_dctq, fused_pipeline)
 
 
 def block_operators(quality: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -102,11 +103,11 @@ class EncoderTables(nn.Module):
     does not factor raises ValueError. ``coefficient_bound`` (None for
     gray) is the largest magnitude a coefficient of m with bias can take
     (``fused_dctq.coefficient_bound``), which the fused kernel's int16 tile
-    needs under 32,768. Wherever the module moves, it records both as those
-    of ``m`` for the factored pixel kernels and the fused kernel
-    (``fused_dctq.remember_factors``). ``plans`` holds the default route's
-    plans of the ``chain.KEPT`` call shapes used last (``chain.Plan``);
-    moving the module drops them."""
+    needs under 32,768. Every kernel the encoder runs on the card reads
+    these factors and this bound (``fused_dctq.kernel_factors``), made
+    when the tables were: a write to m changes neither. ``plans`` holds
+    the default route's plans of the ``chain.KEPT`` call shapes used last
+    (``chain.Plan``); moving the module drops them."""
 
     def __init__(self, m: torch.Tensor, bias: torch.Tensor,
                  dc_codes: torch.Tensor, dc_lens: torch.Tensor,
@@ -131,18 +132,10 @@ class EncoderTables(nn.Module):
         self.register_buffer("lum", lum)
         self.register_buffer("chroma", chroma)
         self.plans: collections.OrderedDict = collections.OrderedDict()
-        self._remember()
-
-    def _remember(self) -> None:
-        if self.lum is not None:
-            fused_dctq.remember_factors(self.m, self.bias, self.subsampling,
-                                        self.lum, self.chroma,
-                                        self.coefficient_bound)
 
     def _apply(self, fn, *args, **kwargs):
         out = super()._apply(fn, *args, **kwargs)
         self.plans = collections.OrderedDict()
-        self._remember()
         return out
 
     def __getstate__(self):
@@ -251,42 +244,68 @@ def _segments(imgs: torch.Tensor, tables: EncoderTables, subsampling: str,
     return entropy_pack.seg_merge_mcu(mwords, mlens, n_seg, mps)
 
 
-def _planned(imgs: torch.Tensor, tables: EncoderTables, subsampling: str,
-             restart: int, batch: bool) -> chain.Plan | None:
-    """The chain's plan for a call on the default route, kept in
-    ``tables.plans`` by shape (the ``chain.KEPT`` used last) and built
-    where it is missing or stale; None where the call is not the chain's
-    (``chain.plan``) or imgs cannot be read where it lies
-    (``Plan.admits``)."""
-    key = (batch, imgs.shape, subsampling, restart, fused_dctq.PIXEL_DC)
-    plans = tables.plans
-    p = plans.get(key)
-    if p is not None and p.current(tables):
-        if not p.admits(imgs):
-            return None
-        plans.move_to_end(key)
+def _chained(imgs: torch.Tensor, subsampling: str, batch: bool,
+             device_stuff: bool, pixel_path: str, fuse_bp: bool) -> bool:
+    """Whether a call runs from a plan (``kernels/chain.py``), from its
+    route, device, mode and rank alone: the default route (device_stuff,
+    "nat", no fuse_bp) in a mode of ``chain.MODES`` on an image of the
+    entry point's rank on the card. ``chain.plan`` checks its operands and
+    raises what the wrappers raise."""
+    return (device_stuff and pixel_path == "nat" and not fuse_bp
+            and subsampling in chain.MODES and imgs.dim() == 3 + batch
+            and imgs.device.type == _build.DEVICE_TYPE)
+
+
+def _encode(imgs: torch.Tensor, tables: EncoderTables, subsampling: str,
+            restart: int, batch: bool, device_stuff: bool, pixel_path: str,
+            fuse_bp: bool) -> Tuple[torch.Tensor, ...]:
+    """``device_encode`` (batch: ``device_encode_batch``): a call that
+    ``_chained`` admits from its plan, kept in ``tables.plans`` (the
+    ``chain.KEPT`` used last) under a key of all that admission and the
+    plan read, and built where it is missing or stale; every other call by
+    the wrappers one by one (``PLANS.fallbacks``)."""
+    key = (batch, imgs.shape, imgs.dtype, imgs.device, subsampling, restart,
+           device_stuff, pixel_path, fuse_bp, fused_dctq.PIXEL_DC)
+    plan = tables.plans.get(key)
+    if plan is not None and plan.current(tables):
+        tables.plans.move_to_end(key)
         chain.PLANS.hits += 1
-        return p
-    if imgs.dim() != 3 + batch:
-        return None
-    my, mx = ops.mcu_grid(imgs.shape[-3], imgs.shape[-2], subsampling)
+        return plan.encode(imgs)
+    # n_seg segments of mps MCUs, spi an image.
+    my, mx = ops.mcu_grid(imgs.shape[batch], imgs.shape[batch + 1],
+                          subsampling)
     if batch:
-        try:
-            spi = batch_segments(my * mx, restart)
-        except BatchGeometryError:
-            return None
+        spi = batch_segments(my * mx, restart)
         n_seg, mps = imgs.shape[0] * spi, restart
     else:
         n_seg, mps = geometry(my * mx, restart)
         spi = n_seg
-    p = chain.plan(imgs, tables, subsampling, restart, n_seg, mps, spi, batch)
-    if p is not None:
-        plans[key] = p
-        plans.move_to_end(key)
-        if len(plans) > chain.KEPT:
-            plans.popitem(last=False)
+    # The shapes the chain leaves to the wrappers: no pixels, and segments
+    # that may reach 2^31 bits (213,723 MCUs at 4:2:0), whose guard in the
+    # merge's wrapper needs a device sync that the chain does not make.
+    if (_chained(imgs, subsampling, batch, device_stuff, pixel_path, fuse_bp)
+            and 0 not in imgs.shape and not entropy_pack.seg_merge_sizes(
+                n_seg, mps, entropy_pack.mcu_words(
+                    fused_dctq.fused_geometry(subsampling)[3] // 64))[2]):
+        plan = tables.plans[key] = chain.plan(imgs, tables, subsampling,
+                                              restart, n_seg, mps, spi, batch)
+        tables.plans.move_to_end(key)
+        if len(tables.plans) > chain.KEPT:
+            tables.plans.popitem(last=False)
         chain.PLANS.built += 1
-    return p
+        return plan.encode(imgs)
+    chain.PLANS.fallbacks += 1
+    seg_words, seg_bits = _segments(imgs if batch else imgs[None], tables,
+                                    subsampling, restart, n_seg, mps,
+                                    pixel_path, fuse_bp)
+    if not device_stuff:
+        buf, nbytes = compact.compact_segments(seg_words, seg_bits)
+        return buf, (nbytes.reshape(-1, spi) if batch else nbytes)
+    if compact.stuff_launcher(n_seg, batch) is compact.STUFF_CHUNKS:
+        return compact.compact_segments_stuffed(seg_words, seg_bits, restart)
+    out = compact.compact_segments_stuffed_grouped(seg_words, seg_bits,
+                                                   restart, spi)
+    return out if batch else out[:2]
 
 
 def device_encode(img: torch.Tensor, tables: EncoderTables, subsampling: str,
@@ -299,23 +318,9 @@ def device_encode(img: torch.Tensor, tables: EncoderTables, subsampling: str,
     the host stuffs (``native.stuff_assemble_contig``). pixel_path and
     fuse_bp choose the kernels (``_segments``), never the bytes; on the
     default route one native call runs them from a cached plan
-    (``_planned``), else each wrapper runs in turn (counted in
-    ``chain.PLANS.fallbacks``)."""
-    if device_stuff and pixel_path == "nat" and not fuse_bp:
-        plan = _planned(img, tables, subsampling, restart, False)
-        if plan is not None:
-            return plan.encode(img)
-    chain.PLANS.fallbacks += 1
-    my, mx = ops.mcu_grid(img.shape[0], img.shape[1], subsampling)
-    n_seg, mps = geometry(my * mx, restart)
-    seg_words, seg_bits = _segments(img[None], tables, subsampling, restart,
-                                    n_seg, mps, pixel_path, fuse_bp)
-    if not device_stuff:
-        return compact.compact_segments(seg_words, seg_bits)
-    if compact.stuff_launcher(n_seg, False) is compact.STUFF:
-        return compact.compact_segments_stuffed_grouped(seg_words, seg_bits,
-                                                        restart)[:2]
-    return compact.compact_segments_stuffed(seg_words, seg_bits, restart)
+    (``_encode``), else each wrapper runs in turn."""
+    return _encode(img, tables, subsampling, restart, False, device_stuff,
+                   pixel_path, fuse_bp)
 
 
 def device_encode_batch(imgs: torch.Tensor, tables: EncoderTables,
@@ -334,21 +339,8 @@ def device_encode_batch(imgs: torch.Tensor, tables: EncoderTables,
     each; without, (u8 compacted stream, nbytes [n, segments per image]
     int64). The default route runs from a cached plan, as
     ``device_encode``'s."""
-    if device_stuff and pixel_path == "nat" and not fuse_bp:
-        plan = _planned(imgs, tables, subsampling, restart, True)
-        if plan is not None:
-            return plan.encode(imgs)
-    chain.PLANS.fallbacks += 1
-    n = imgs.shape[0]
-    my, mx = ops.mcu_grid(imgs.shape[1], imgs.shape[2], subsampling)
-    spi = batch_segments(my * mx, restart)
-    seg_words, seg_bits = _segments(imgs, tables, subsampling, restart,
-                                    n * spi, restart, pixel_path, fuse_bp)
-    if not device_stuff:
-        buf, nbytes = compact.compact_segments(seg_words, seg_bits)
-        return buf, nbytes.reshape(n, spi)
-    return compact.compact_segments_stuffed_grouped(seg_words, seg_bits,
-                                                    restart, spi)
+    return _encode(imgs, tables, subsampling, restart, True, device_stuff,
+                   pixel_path, fuse_bp)
 
 
 def _pixels(img: np.ndarray, subsampling: str, lead: int = 0) -> np.ndarray:

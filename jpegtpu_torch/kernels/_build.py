@@ -44,6 +44,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PTR = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+# The type of the device the kernels run on.
+DEVICE_TYPE = "cuda"
 
 
 def _nvcc() -> str:
@@ -103,13 +105,15 @@ def library() -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path()))
 
 
-def check_cuda(*tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
-    dev = tensors[0].device
+def check_cuda(*tensors: torch.Tensor,
+               device: torch.device | None = None) -> None:
+    """Raise unless every tensor is a contiguous tensor on one device of
+    ``DEVICE_TYPE`` (on device, where it is given)."""
+    dev = tensors[0].device if device is None else device
     for t in tensors:
-        if t.device != dev or dev.type != "cuda":
+        if t.device != dev or dev.type != DEVICE_TYPE:
             raise ValueError(f"expected CUDA tensors on one device, got "
-                             f"{[str(x.device) for x in tensors]}")
+                             f"{[str(x.device) for x in tensors]} for {dev}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
 

@@ -2,15 +2,17 @@
 the pixel kernel, the block pack, the segment merge and the stuffing
 (``csrc/chain.cu``, ``jt_encode_chain``).
 
-``encoder.device_encode`` and ``device_encode_batch`` take this path on
-CUDA tensors with ``pixel_path="nat"``, ``fuse_bp=False`` and
-``device_stuff=True`` in a mode of ``FUSED_MODES``, for u8 images whose
-width is whole MCUs and whose height is whole MCUs or folds
-(``fused_dctq.row_fold``), contiguous at a 16-byte aligned address, where
-no segment can reach 2^31 bits. Every other call takes the per-kernel
-wrappers, which check their operands on every call. The two paths share
-the kernels and no Python: the per-kernel path pays for its checks on
-every call, this one once, when its plan is built.
+``encoder.device_encode`` and ``device_encode_batch`` run every call that
+``encoder._chained`` admits from a plan (the default route,
+``device_stuff=True``, ``pixel_path="nat"``, ``fuse_bp=False``, in a mode
+of ``MODES``, on the card), but a shape with no pixels or whose segments
+may reach 2^31 bits; every other call takes the per-kernel wrappers.
+``plan`` checks the operands with the wrappers' own checks and raises
+what they raise. ``Plan.encode`` gives the chain an image it can read as
+the wrappers would: padded to whole MCUs (``fused_dctq.pad_mcus``,
+counted in ``PADS.gathers``) where the width is not whole MCUs or the row
+pad is as long as the image, else copied where it is not contiguous or
+not 16-byte aligned.
 
 A ``Plan`` is built on the first call of a shape and kept in the tables'
 ``plans`` (``EncoderTables``, which drops them whenever it moves), the
@@ -21,15 +23,13 @@ from the same functions (``fused_dctq.nat_view``, ``factored_sizes``,
 ``entropy_pack.dc_strides``, ``seg_merge_sizes``,
 ``compact.stuff_launcher``, ``stuff_scratch_words``, ``scan_capacity``),
 and lays the intermediates out in two buffers; the device pointers of the
-tables; and the version counter of every tensor of the tables it read: a
-tensor written in place, or replaced, makes the next call build the plan
-again (as ``fused_dctq._factored`` refactors). A call then checks the
-image with attribute reads, allocates two buffers and the bounds from
-torch's caching allocator, and makes one foreign call, which reports the
-launchers it called; each of their kernels' ``launches`` rises by that.
-Nothing is held across calls. ``PLANS`` counts plans built, calls served
-by a kept plan, and calls of the two entry points that took the
-per-kernel path.
+tables' factors, bias and LUTs, and the version counter of each: one
+written in place, or replaced, makes the next call build the plan again.
+A call allocates two buffers and the bounds from torch's caching
+allocator and makes one foreign call, which reports the launchers it
+called; each of their kernels' ``launches`` rises by that. ``PLANS``
+counts plans built, calls served by a kept plan, and calls of the two
+entry points that took the per-kernel path.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import torch
 
 from jpegtpu_torch.config import EncoderConfig
 from jpegtpu_torch.kernels import _build, compact, entropy_pack, fused_dctq
-from jpegtpu_torch.kernels.fused_pipeline import FUSED_MODES
+from jpegtpu_torch.kernels.fused_pipeline import FUSED_MODES as MODES
 
 CHAIN = _build.Kernel("jt_encode_chain", [
     _build.PTR, _build.PTR,                           # plan, img
@@ -52,8 +52,6 @@ CHAIN = _build.Kernel("jt_encode_chain", [
 CHAINED = (fused_dctq.PIXEL, fused_dctq.PIXEL_DC_PLANE,
            entropy_pack.BLOCK_PACK_SEGMENTS, entropy_pack.SEG_MERGE,
            compact.STUFF, compact.STUFF_CHUNKS)
-# The device the kernels run on: the only one a plan is built for.
-DEVICE_TYPE = "cuda"
 # Alignment of every intermediate within its buffer, in bytes.
 ALIGN = 256
 # Plans an EncoderTables keeps, the shapes used last.
@@ -93,33 +91,40 @@ def _align(nbytes: int) -> int:
 
 
 class Plan:
-    """One shape's chain on one ``EncoderTables``: n_img images of h x w
-    in segments of mps MCUs, spi an image (a single image: all of
-    n_seg). Build it with ``plan``."""
+    """One call shape's chain on one ``EncoderTables``: images like imgs
+    (padded to whole MCUs where ``pad``) in n_seg segments of mps MCUs,
+    spi an image (a single image: all of n_seg). Build it with ``plan``."""
 
-    def __init__(self, tables, device: torch.device, n_img: int, h: int,
-                 w: int, subsampling: str, restart: int, n_seg: int,
-                 mps: int, spi: int, batch: bool, lum: torch.Tensor,
-                 chroma: torch.Tensor):
-        _, mw, _, n_out = fused_dctq.fused_geometry(subsampling)
+    def __init__(self, imgs: torch.Tensor, tables, subsampling: str,
+                 restart: int, n_seg: int, mps: int, spi: int, batch: bool,
+                 factors: tuple, luts: list):
+        mh, mw, _, n_out = fused_dctq.fused_geometry(subsampling)
+        h, w = imgs.shape[-3], imgs.shape[-2]
+        self.fold = fused_dctq.row_fold(h, w, subsampling)
+        self.pad = bool(h % mh or w % mw) and not self.fold
+        if self.pad:
+            h, w = -(-h // mh) * mh, -(-w // mw) * mw
         view = fused_dctq.nat_view(h, subsampling)
-        sizes = fused_dctq.factored_sizes(n_img * view[1], w, mw)
+        sizes = fused_dctq.factored_sizes(
+            (imgs.shape[0] if batch else 1) * view[1], w, mw)
         n_mcu, g = sizes[0], n_out // 64
         mcu_words = entropy_pack.mcu_words(g)
         seg_words, merge_words, _ = entropy_pack.seg_merge_sizes(
             n_seg, mps, mcu_words)
         with_dc = fused_dctq.PIXEL_DC
         stuff = compact.stuff_launcher(n_seg, batch)
-        mnum = compact.marker_table(n_seg, restart, spi, device)
-        # Every tensor the chain reads, held so that its pointer stays valid
-        # (the marker table too: its cache may drop it), and its version.
+        self.device, self.batch = imgs.device, batch
+        mnum = compact.marker_table(n_seg, restart, spi, self.device)
+        # The tables' tensors that the chain reads, and their versions; the
+        # tensors it is given, held so that their pointers stay valid (the
+        # marker table too: its cache may drop it).
         self.named = tuple((name, getattr(tables, name)) for name in (
-            "m", "bias", "dc_codes", "dc_lens", "ac_codes", "ac_lens"))
-        self.held = tuple(t for _, t in self.named) + (lum, chroma, mnum)
-        self.versions = tuple(t._version for t in self.held)
-        self.device, self.batch = device, batch
+            "lum", "chroma", "bias", "dc_codes", "dc_lens", "ac_codes",
+            "ac_lens"))
+        self.versions = tuple(t._version for _, t in self.named)
+        self.held = (*factors, *luts, mnum)
+        self.subsampling = subsampling
         self.n_bounds = n_seg // spi + 1
-        self.fold = fused_dctq.row_fold(h, w, subsampling)
         # work: the coefficients (and DC plane), then the segments and
         # both scratches; out: the MCU streams and lengths, then the scan.
         dc_at = _align(4 * n_mcu * n_out)
@@ -133,8 +138,8 @@ class Plan:
         self.out_bytes = max(compact.scan_capacity(n_seg, seg_words),
                              mlens_at + 4 * n_mcu)
         self.args = ChainArgs(
-            lum.data_ptr(), chroma.data_ptr(), tables.bias.data_ptr(),
-            *(t.data_ptr() for t in tables.luts()), mnum.data_ptr(),
+            *(t.data_ptr() for t in factors),
+            *(t.data_ptr() for t in luts), mnum.data_ptr(),
             *sizes, *view, int(with_dc),
             *entropy_pack.dc_strides(
                 g, fused_dctq.DC_LANES if with_dc else None),
@@ -149,20 +154,20 @@ class Plan:
         written since."""
         buffers = tables._buffers
         return (all(buffers[name] is t for name, t in self.named) and
-                tuple(t._version for t in self.held) == self.versions)
-
-    def admits(self, imgs: torch.Tensor) -> bool:
-        """Whether the chain can read imgs (of the plan's shape) where it
-        lies: u8 on the plan's device, contiguous, 16-byte aligned."""
-        return (imgs.device == self.device and imgs.dtype == torch.uint8
-                and imgs.is_contiguous() and imgs.data_ptr() % 16 == 0)
+                tuple(t._version for _, t in self.named) == self.versions)
 
     def encode(self, imgs: torch.Tensor) -> tuple:
-        """Enqueue the chain on imgs: (u8 scan buffer, total bytes int64
-        scalar), and for a batch each image's first byte [n] int64, as the
+        """Enqueue the chain on imgs, of the plan's key, padded to whole
+        MCUs where the plan pads, else copied where it is not contiguous or
+        not 16-byte aligned: (u8 scan buffer, total bytes int64 scalar),
+        and for a batch each image's first byte [n] int64, as the
         per-kernel path returns them. Each kernel the chain launched counts
         a launch (``CHAINED``), and K1 or K12 a fold where it folds, as the
         wrappers count them."""
+        if self.pad:
+            imgs = fused_dctq.pad_mcus(imgs, self.subsampling)
+        elif imgs.data_ptr() % 16 or not imgs.is_contiguous():
+            imgs = imgs.clone(memory_format=torch.contiguous_format)
         dev = self.device
         work = torch.empty(self.work_bytes, dtype=torch.uint8, device=dev)
         out = torch.empty(self.out_bytes, dtype=torch.uint8, device=dev)
@@ -181,34 +186,19 @@ class Plan:
 
 
 def plan(imgs: torch.Tensor, tables, subsampling: str, restart: int,
-         n_seg: int, mps: int, spi: int, batch: bool) -> Plan | None:
-    """The chain's plan for imgs (u8 [H, W, 3], or a batch [n, H, W, 3])
-    in n_seg segments of mps MCUs, spi an image, on the tables of
-    subsampling; None where the call is not the chain's (module
-    docstring), so the per-kernel path takes it and raises what it
-    raises."""
-    shape = imgs.shape
-    if (subsampling not in FUSED_MODES or imgs.device.type != DEVICE_TYPE
-            or len(shape) != 3 + batch or shape[-1] != 3 or 0 in shape):
-        return None
-    n_img, h, w = (shape[0] if batch else 1), shape[-3], shape[-2]
-    mh, mw, n_in, n_out = fused_dctq.fused_geometry(subsampling)
-    m, bias, luts = tables.m, tables.bias, tables.luts()
-    if (w % mw or (h % mh and not fused_dctq.row_fold(h, w, subsampling))
-            or restart < 0 or entropy_pack.seg_merge_sizes(
-                n_seg, mps, entropy_pack.mcu_words(n_out // 64))[2]):
-        return None
-    if (tuple(m.shape) != (n_in, n_out) or tuple(bias.shape) != (n_out,)
-            or m.dtype != torch.float32 or bias.dtype != torch.float32
-            or not entropy_pack._luts_ok(luts)
-            or any(t.dtype != torch.int32 for t in luts)
-            or any(t.device != imgs.device or not t.is_contiguous()
-                   for t in (m, bias, *luts))):
-        return None
-    try:
-        lum, chroma = fused_dctq.cuda_factors(m, bias, subsampling)
-    except ValueError:
-        return None
-    p = Plan(tables, imgs.device, n_img, h, w, subsampling, restart, n_seg,
-             mps, spi, batch, lum, chroma)
-    return p if p.admits(imgs) else None
+         n_seg: int, mps: int, spi: int, batch: bool) -> Plan:
+    """The chain's plan for imgs (u8 [H, W, 3], or a batch [n, H, W, 3], on
+    the card) in n_seg segments of mps MCUs, spi an image, on the tables of
+    subsampling. Raises what the wrappers raise on these operands, from
+    their checks: of the image and the operator's shape
+    (``fused_dctq.operand_geometry``), the factors (``kernel_factors``),
+    the LUTs (``entropy_pack.kernel_luts``), the restart interval and the
+    devices (``_build.check_cuda``)."""
+    fused_dctq.operand_geometry(imgs, tables.m, tables.bias, subsampling,
+                                batch)
+    factors = fused_dctq.kernel_factors(tables, subsampling)
+    luts = entropy_pack.kernel_luts(tables.luts())
+    entropy_pack.check_restart(restart)
+    _build.check_cuda(*factors, *luts, device=imgs.device)
+    return Plan(imgs, tables, subsampling, restart, n_seg, mps, spi, batch,
+                factors, luts)

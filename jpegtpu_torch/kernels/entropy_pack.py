@@ -215,11 +215,10 @@ def block_pack_mcu_pairs(c2: torch.Tensor, cls: torch.Tensor,
                                           dc_lens, ac_codes, ac_lens)
     nm, gx64 = c2.shape
     g = gx64 // 64
-    args = [t.to(torch.int32).contiguous()
-            for t in (c2, cls, dcdiff, dc_codes, dc_lens, ac_codes, ac_lens)]
+    args = [t.to(torch.int32).contiguous() for t in (c2, cls, dcdiff)]
+    args += kernel_luts((dc_codes, dc_lens, ac_codes, ac_lens))
     _build.check_cuda(*args)
-    if (gx64 % 64 or args[1].numel() != nm * g or args[2].numel() != nm * g
-            or not _luts_ok(args[3:])):
+    if gx64 % 64 or args[1].numel() != nm * g or args[2].numel() != nm * g:
         raise ValueError("block_pack_mcu_pairs: bad input shapes")
     mwords, mlens = _mcu_outputs(nm, g, c2.device)
     BLOCK_PACK.launch(c2.device, *(a.data_ptr() for a in args),
@@ -228,9 +227,20 @@ def block_pack_mcu_pairs(c2: torch.Tensor, cls: torch.Tensor,
     return mwords, mlens
 
 
-def _luts_ok(luts) -> bool:
-    return [tuple(t.shape) for t in luts] == [(2, 16), (2, 16), (2, 256),
-                                              (2, 256)]
+def kernel_luts(luts: Sequence[torch.Tensor]) -> list:
+    """The packed Huffman LUTs as K2 reads them, int32 and contiguous;
+    ValueError unless dc_* are [2, 16] and ac_* [2, 256]."""
+    luts = [t.to(torch.int32).contiguous() for t in luts]
+    if [tuple(t.shape) for t in luts] != [(2, 16), (2, 16), (2, 256),
+                                          (2, 256)]:
+        raise ValueError("block_pack: bad Huffman LUT shapes")
+    return luts
+
+
+def check_restart(restart: int) -> None:
+    """ValueError unless restart (MCUs a segment; 0: one) is >= 0."""
+    if restart < 0:
+        raise ValueError(f"restart must be >= 0, got {restart}")
 
 
 def dc_strides(g: int, dc_width: int | None = None) -> Tuple[int, int]:
@@ -288,11 +298,11 @@ def block_pack_mcu_segments(coeffs: torch.Tensor, n_luma: int, restart: int,
     g = gx64 // 64
     coeffs = coeffs.to(torch.int32).contiguous()
     src = coeffs if dc is None else dc.to(torch.int32).contiguous()
-    luts = [t.to(torch.int32).contiguous() for t in luts]
+    luts = kernel_luts(luts)
+    check_restart(restart)
     _build.check_cuda(coeffs, src, *luts)
-    if (gx64 % 64 or not _luts_ok(luts) or not 1 <= n_luma <= g
-            or restart < 0 or (dc is not None and (
-                src.dim() != 2 or src.shape[0] != nm or src.shape[1] < g))):
+    if (gx64 % 64 or not 1 <= n_luma <= g or (dc is not None and (
+            src.dim() != 2 or src.shape[0] != nm or src.shape[1] < g))):
         raise ValueError("block_pack_mcu_segments: bad input shapes")
     strides = dc_strides(g, None if dc is None else src.shape[1])
     mwords, mlens = _mcu_outputs(nm, g, coeffs.device)

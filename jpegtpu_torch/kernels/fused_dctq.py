@@ -45,10 +45,10 @@ Where an image's height is not whole MCUs (1080 rows at 4:2:0) but its
 width is, K1 and K12 on the "nat" route read the unpadded image or batch
 and mirror the last MCU row's missing rows as they stage it
 (``row_fold``); every other route and shape, and the twins, pad first
-(``pad_mcus``, a gather). ``PADS`` counts the two. The
-wrappers get the factors of a CUDA operator from ``EncoderTables``, which
-factors its operator on the host when it is made; one that does not
-factor raises.
+(``pad_mcus``, a gather). ``PADS`` counts the two. The encoder's routes
+take the factors its ``EncoderTables`` made (``kernel_factors``); the
+wrappers of jpegtpu's signature (img, m, bias) factor the operator they
+are given (``cuda_factors``). An operator that does not factor raises.
 
 The product accumulates in float64. jpegtpu's f32 product on CPU and an f32
 product summed in any other order disagree on a few coefficients that sit
@@ -340,23 +340,26 @@ def factor_operator(m, subsampling: str, bias=None
     return lum, chroma
 
 
-# (id of an operator, mode) -> its factors on the same device and its
-# coefficient_bound, with weak references to the operator and its bias and
-# their version counters, which prove the entry is still those tensors,
-# unmodified; the entry goes when either does (EncoderTables records its
-# factors whenever it moves). A table beside the wrappers because they keep
-# jpegtpu's signature (img, m, bias, subsampling), which has no place for
-# the factors.
+# (id of an operator, mode) -> weak references to the operator and its
+# bias, their version counters, which prove the entry is still those
+# tensors, unmodified, and the factors; the entry goes when either tensor
+# does. The memo of ``cuda_factors``, for the wrappers of jpegtpu's
+# signature (img, m, bias, subsampling), which has no place for factors.
 _FACTORS: dict = {}
 
 
-def remember_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str,
-                     lum: torch.Tensor, chroma: torch.Tensor,
-                     bound: float) -> None:
-    """Record lum and chroma as the subsampling-mode factors of m with
-    bias, and bound as its ``coefficient_bound``, for the pixel
-    wrappers."""
+def cuda_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The factors of the operator m with bias as f32 tensors on m's
+    device: ``factor_operator`` of host copies of the two (a device sync)
+    on the first call, from the memo while neither is modified."""
     key = (id(m), subsampling)
+    hit = _FACTORS.get(key)
+    if (hit is not None and hit[0]() is m and hit[1] == m._version
+            and hit[2]() is bias and hit[3] == bias._version):
+        return hit[4:]
+    lum, chroma = (torch.from_numpy(a).to(m.device)
+                   for a in factor_operator(m, subsampling, bias))
 
     def drop(_):
         # At interpreter exit the module's globals may already be cleared
@@ -366,39 +369,28 @@ def remember_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str,
             del factors[key]
 
     entry = (weakref.ref(m, drop), m._version, weakref.ref(bias, drop),
-             bias._version, lum, chroma, bound)
+             bias._version, lum, chroma)
     _FACTORS[key] = entry
+    return lum, chroma
 
 
-def _factored(m: torch.Tensor, bias: torch.Tensor, subsampling: str
-              ) -> tuple:
-    """The factor table's entry for m with bias, both unmodified (no device
-    sync), else m factored on the host from copies of the two (a sync;
-    ``factor_operator``, which checks the columns' width with this bias)
-    and recorded."""
-    hit = _FACTORS.get((id(m), subsampling))
-    if (hit is not None and hit[0]() is m and hit[1] == m._version
-            and hit[2]() is bias and hit[3] == bias._version):
-        return hit
-    lum, chroma = (torch.from_numpy(a).to(m.device)
-                   for a in factor_operator(m, subsampling, bias))
-    remember_factors(m, bias, subsampling, lum, chroma,
-                     coefficient_bound(m, bias))
-    return _FACTORS[(id(m), subsampling)]
+def kernel_factors(tables, subsampling: str
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lum, chroma, bias) f32 of an ``EncoderTables``, made with it, as
+    the factored kernels read them; ValueError unless they are this mode's
+    (4:4:4s's operator has 4:4:4's shape, not its factors)."""
+    if tables.subsampling != subsampling:
+        raise ValueError(f"the {subsampling} kernels need {subsampling} "
+                         f"factors, the tables hold {tables.subsampling}'s")
+    return tuple(t.to(torch.float32)
+                 for t in (tables.lum, tables.chroma, tables.bias))
 
 
-def cuda_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The factors of the CUDA operator m as f32 tensors on its device:
-    those recorded for this m and this bias (``_factored``)."""
-    return _factored(m, bias, subsampling)[4:6]
-
-
-def recorded_coefficient_bound(m: torch.Tensor, bias: torch.Tensor,
-                               subsampling: str) -> float:
-    """``coefficient_bound`` of m with bias, recorded with its factors
-    (``_factored``: no device sync once they are recorded)."""
-    return _factored(m, bias, subsampling)[6]
+def _operator_factors(m: torch.Tensor, bias: torch.Tensor, subsampling: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``kernel_factors`` of an operator and its bias (``cuda_factors``)."""
+    bias = bias.to(torch.float32).contiguous()
+    return (*cuda_factors(m, bias, subsampling), bias)
 
 
 def mcu_tiles(img: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
@@ -459,10 +451,11 @@ def dc_plane(coeffs: torch.Tensor) -> torch.Tensor:
 
 
 def operand_geometry(img: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
-                     subsampling: str) -> Tuple[int, int, int, int]:
-    """Raise unless img is u8 [H, W, 3] and m/bias are the operator of a
-    fused mode; its fused_geometry."""
-    if img.dtype != torch.uint8 or img.ndim != 3 or img.shape[2] != 3:
+                     subsampling: str, lead: int = 0
+                     ) -> Tuple[int, int, int, int]:
+    """Raise unless img is u8 [H, W, 3] (lead 1: a batch [n, H, W, 3]) and
+    m/bias are the operator of a fused mode; its fused_geometry."""
+    if img.dtype != torch.uint8 or img.ndim != 3 + lead or img.shape[-1] != 3:
         raise ValueError(f"expected uint8 [H, W, 3], got {img.dtype} "
                          f"{tuple(img.shape)}")
     mh, mw, n_in, n_out = fused_geometry(subsampling)
@@ -488,22 +481,19 @@ def nat_view(h: int, subsampling: str) -> Tuple[int, ...]:
     return h, -(-h // mh), mh, mw, chroma_groups(subsampling)[0]
 
 
-def _launch_factored(kernel, img, m, bias, subsampling, *extra,
+def _launch_factored(kernel, img, factors, subsampling, *extra,
                      with_dc=False, mcu_rows=None):
-    """Launch K1, K12, K13 or K14 on the factors of the CUDA operator m,
-    img [H, W, 3] of a fused mode (u8, or K13's int8 view reshaped to it,
-    the same bytes) contiguous at a 16-byte aligned address (the kernels'
-    copies are 16 or 8 bytes): whole MCUs, H // mh MCU rows (K13, K14);
-    or, for K1 and K12, the tall view of images of extra's h rows and my
-    MCU rows each, whose MCU rows ``mcu_rows`` counts. int32 [nMCU, B*64]
-    out and, with_dc, the DC plane [nMCU, DC_LANES] (returns (out,
-    dc))."""
+    """Launch K1, K12, K13 or K14 on factors (``kernel_factors``: lum,
+    chroma, bias), img [H, W, 3] of a fused mode (u8, or K13's int8 view
+    reshaped to it, the same bytes) contiguous at a 16-byte aligned address
+    (the kernels' copies are 16 or 8 bytes): whole MCUs, H // mh MCU rows
+    (K13, K14); or, for K1 and K12, the tall view of images of extra's h
+    rows and my MCU rows each, whose MCU rows ``mcu_rows`` counts. int32
+    [nMCU, B*64] out and, with_dc, the DC plane [nMCU, DC_LANES] (returns
+    (out, dc))."""
     mh, mw, _, n_out = fused_geometry(subsampling)
     img = img.contiguous()
-    bias = bias.to(torch.float32).contiguous()
-    _build.check_cuda(img, m.to(torch.float32).contiguous(), bias)
-    lum, chroma = cuda_factors(m, bias, subsampling)
-    _build.check_cuda(img, lum, chroma, bias)
+    _build.check_cuda(img, *factors)
     if img.data_ptr() % 16:
         img = img.clone()
     h, w, _ = img.shape
@@ -512,34 +502,34 @@ def _launch_factored(kernel, img, m, bias, subsampling, *extra,
     out = torch.empty((n_mcu, n_out), dtype=torch.int32, device=img.device)
     dc = [torch.empty((n_mcu, DC_LANES), dtype=torch.int32,
                       device=img.device)] if with_dc else []
-    kernel.launch(img.device, img.data_ptr(), lum.data_ptr(),
-                  chroma.data_ptr(), bias.data_ptr(), out.data_ptr(),
+    kernel.launch(img.device, img.data_ptr(),
+                  *(f.data_ptr() for f in factors), out.data_ptr(),
                   *(d.data_ptr() for d in dc), *sizes, *extra)
     return (out, *dc) if with_dc else out
 
 
 def _pixel_nat(imgs: torch.Tensor, m: torch.Tensor, bias: torch.Tensor,
-               subsampling: str, with_dc: bool):
-    """The "nat" route on a batch u8 [n, H, W, 3] of a fused mode: image
-    i's MCUs in rows [i * nMCU, (i + 1) * nMCU) (with_dc: and the DC
-    plane). On a CPU tensor the plain twin on the batch padded to whole
-    MCUs. On the card one launch of K1 (with_dc: K12) for the batch: where
+               factors, subsampling: str, with_dc: bool):
+    """The "nat" route on a checked batch u8 [n, H, W, 3] of a fused mode:
+    image i's MCUs in rows [i * nMCU, (i + 1) * nMCU) (with_dc: and the DC
+    plane). Where factors is None (a CPU tensor) the plain twin of m and
+    bias on the batch padded to whole MCUs. On the card one launch of K1
+    (with_dc: K12) on factors (``kernel_factors``) for the batch: where
     ``row_fold`` allows, on the unpadded batch viewed as [n * H, W, 3],
     the kernel reading each image's mirrored last MCU row itself
     (``PADS.folds``); else on the batch padded to whole MCUs
     (``pad_mcus``), viewed as one tall image."""
     n, h, w, _ = imgs.shape
-    if imgs.device.type != "cpu" and row_fold(h, w, subsampling):
+    if factors is not None and row_fold(h, w, subsampling):
         PADS.folds += 1
     else:
         imgs = pad_mcus(imgs, subsampling)
     view = nat_view(imgs.shape[1], subsampling)
     x = imgs.reshape(n * view[0], imgs.shape[2], imgs.shape[3])
-    operand_geometry(x, m, bias, subsampling)
-    if x.device.type == "cpu":
+    if factors is None:
         y = encode_blocks_pairs_plain(x, m, bias, subsampling)
         return (y, dc_plane(y)) if with_dc else y
-    return _launch_factored(PIXEL_DC_PLANE if with_dc else PIXEL, x, m, bias,
+    return _launch_factored(PIXEL_DC_PLANE if with_dc else PIXEL, x, factors,
                             subsampling, *view, with_dc=with_dc,
                             mcu_rows=n * view[1])
 
@@ -561,7 +551,9 @@ def encode_blocks_pairs(img: torch.Tensor, m: torch.Tensor,
     plane (None) when its kernel's lane rule refuses the width; the port
     has no such rule."""
     operand_geometry(img, m, bias, subsampling)
-    return _pixel_nat(img[None], m, bias, subsampling, with_dc)
+    factors = (None if img.device.type == "cpu"
+               else _operator_factors(m, bias, subsampling))
+    return _pixel_nat(img[None], m, bias, factors, subsampling, with_dc)
 
 
 def encode_blocks_matmul_pairs(img: torch.Tensor, m: torch.Tensor,
@@ -616,8 +608,9 @@ def encode_blocks_i8_pairs(img: torch.Tensor, m: torch.Tensor,
     if img.device.type == "cpu":
         return pixel_i8_plain(x8, m, bias)
     rows, _, nrx, _ = x8.shape
-    return _launch_factored(PIXEL_I8, x8.reshape(rows * 16, nrx * 16, 3), m,
-                            bias, subsampling)
+    return _launch_factored(PIXEL_I8, x8.reshape(rows * 16, nrx * 16, 3),
+                            _operator_factors(m, bias, subsampling),
+                            subsampling)
 
 
 def encode_blocks_dma_pairs(img: torch.Tensor, m: torch.Tensor,
@@ -636,7 +629,8 @@ def encode_blocks_dma_pairs(img: torch.Tensor, m: torch.Tensor,
         return encode_blocks_matmul_pairs(img, m, bias, subsampling)
     if img.device.type == "cpu":
         return encode_blocks_pairs_plain(img, m, bias, subsampling)
-    return _launch_factored(PIXEL_DMA, pad_mcus(img, subsampling), m, bias,
+    return _launch_factored(PIXEL_DMA, pad_mcus(img, subsampling),
+                            _operator_factors(m, bias, subsampling),
                             subsampling)
 
 
@@ -669,14 +663,18 @@ def encode_blocks_batch(imgs: torch.Tensor, tables, subsampling: str,
                          f"got {pixel_path!r}")
     h, w = imgs.shape[1], imgs.shape[2]
     if uses_fused(h, w, subsampling):
+        m, bias = tables.m, tables.bias
+        mh, mw, _, _ = operand_geometry(imgs, m, bias, subsampling, 1)
+        factors = (None if imgs.device.type == "cpu"
+                   else kernel_factors(tables, subsampling))
         if pixel_path == "nat":
-            return _pixel_nat(imgs, tables.m, tables.bias, subsampling,
-                              with_dc)
+            return _pixel_nat(imgs, m, bias, factors, subsampling, with_dc)
         padded = pad_mcus(imgs, subsampling)
         x = padded.reshape(-1, *padded.shape[2:])
-        route = (encode_blocks_dma_pairs if pixel_path == "dma"
-                 else encode_blocks_matmul_pairs)
-        y = route(x, tables.m, tables.bias, subsampling)
+        if pixel_path == "dma" and subsampling == "420" and factors:
+            y = _launch_factored(PIXEL_DMA, x, factors, subsampling)
+        else:       # "xla", and "dma" where it is the same product
+            y = _tile_product(x, m, bias, mh, mw)
         return (y, None) if with_dc else y
     if subsampling == "gray":
         imgs = imgs[..., None]          # [n, H, W, 1]: never read as RGB

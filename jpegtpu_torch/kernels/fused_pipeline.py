@@ -49,8 +49,7 @@ def _checked(img: torch.Tensor, tables, subsampling: str) -> Tuple[int, int]:
                          f"{subsampling!r}")
     mh, mw = fused_dctq.operand_geometry(img, tables.m, tables.bias,
                                          subsampling)[:2]
-    bound = fused_dctq.recorded_coefficient_bound(tables.m, tables.bias,
-                                                  subsampling)
+    bound = tables.coefficient_bound
     if bound > fused_dctq.INT16_MAX:
         raise ValueError(f"the fused front end holds coefficients in int16: "
                          f"the {subsampling} operator's reach {bound:.1f}, "
@@ -105,35 +104,33 @@ def fused_pixel_block_pack_pairs(img: torch.Tensor, tables, subsampling: str,
     as one tall image) -> (MCU streams [nM, g*52+2] int32, bit lengths [nM]
     int32): ``entropy_pack.block_pack_mcu_segments`` of
     ``fused_dctq.encode_blocks_pairs(img)``, in one launch of
-    ``csrc/fused_px_bp.cu`` on a CUDA tensor, on the factors that
-    ``fused_dctq.cuda_factors`` records for the tables' operator (the plain
-    twin on a CPU tensor). ``tables`` is an ``EncoderTables`` of this mode;
+    ``csrc/fused_px_bp.cu`` on a CUDA tensor, on the tables' own factors
+    (``fused_dctq.kernel_factors``; the plain twin on a CPU tensor).
+    ``tables`` is an ``EncoderTables`` of this mode;
     the DC predictor resets where the MCU index is a multiple of
     ``restart`` (restart > 0), or at MCU 0 alone (restart 0). On the card
     each MCU's words past ceil(mlen / 32) are undefined (never written), as
     K2's; the twin zeroes them."""
     mh, mw = _checked(img, tables, subsampling)
-    if restart < 0:
-        raise ValueError(f"restart must be >= 0, got {restart}")
+    entropy_pack.check_restart(restart)
     if img.device.type == "cpu":
         return fused_pixel_block_pack_pairs_plain(img, tables, subsampling,
                                                   restart)
     padded = fused_dctq.pad_mcus(img, subsampling).contiguous()
-    bias = tables.bias.to(torch.float32).contiguous()
-    lum, chroma = fused_dctq.cuda_factors(tables.m, bias, subsampling)
-    luts = [t.to(torch.int32).contiguous() for t in tables.luts()]
-    _build.check_cuda(padded, lum, chroma, bias, *luts)
+    factors = fused_dctq.kernel_factors(tables, subsampling)
+    luts = entropy_pack.kernel_luts(tables.luts())
+    _build.check_cuda(padded, *factors, *luts)
     if padded.data_ptr() % 16:
         padded = padded.clone()
     h, w, _ = padded.shape
     nrx = w // mw
     n_mcu = (h // mh) * nrx
-    words = entropy_pack.mcu_words(bias.shape[0] // 64)
+    words = entropy_pack.mcu_words(factors[2].shape[0] // 64)
     mwords = torch.empty((n_mcu, words), dtype=torch.int32,
                          device=padded.device)
     mlens = torch.empty((n_mcu,), dtype=torch.int32, device=padded.device)
-    FUSED_PX_BP.launch(padded.device, padded.data_ptr(), lum.data_ptr(),
-                       chroma.data_ptr(), bias.data_ptr(),
+    FUSED_PX_BP.launch(padded.device, padded.data_ptr(),
+                       *(f.data_ptr() for f in factors),
                        *(t.data_ptr() for t in luts), mwords.data_ptr(),
                        mlens.data_ptr(), n_mcu, nrx, w * 3, restart, mh, mw,
                        words)

@@ -637,7 +637,9 @@ def test_row_fold_equals_the_padded_launch(dev, mode, h, n, with_dc):
     assert fused_dctq.row_fold(h, w, mode)
     fused_dctq.PADS.folds = fused_dctq.PADS.gathers = 0
     got, launches = _path_launches(
-        lambda: fused_dctq._pixel_nat(imgs, t.m, t.bias, mode, with_dc))
+        lambda: fused_dctq._pixel_nat(imgs, t.m, t.bias,
+                                      fused_dctq.kernel_factors(t, mode),
+                                      mode, with_dc))
     assert (fused_dctq.PADS.folds, fused_dctq.PADS.gathers) == (1, 0)
     assert launches["pixel_dc" if with_dc else "pixel"] == 1
     padded = ops.pad_to_multiple(imgs, ops.mcu_shape(mode))
@@ -1517,41 +1519,85 @@ def test_k3_output_feeds_the_stuffing_and_compaction(dev):
     assert torch.equal(buf[:n], want[:n])
 
 
-# (shape, mode, restart, PIXEL_DC): the benchmark cells' geometries (4K
-# 4:2:0 rows, 8 x 1080p 4:2:0 rows, 4K 4:4:4 rows), 4:2:2, restart 1, 0 and
-# 7 (a ragged last segment), a single 1080-row frame, whose last MCU row K1
-# folds, and the DC-plane route (K12) on rows, restart 7 and the batch.
+# (shape, mode, restart, PIXEL_DC, layout): the benchmark cells' geometries
+# (4K 4:2:0 rows, 8 x 1080p 4:2:0 rows, 4K 4:4:4 rows), 4:2:2, restart 1,
+# 0 and 7 (a ragged last segment), a single 1080-row frame, whose last MCU
+# row K1 folds, and the DC-plane route (K12) on rows, restart 7 and the
+# batch; then the inputs the chain makes readable first: a 4K frame one
+# byte off an aligned address and a transposed (not contiguous) 1080p
+# frame, which it copies, and a width that is not whole MCUs and an 8 x 16
+# image (a row pad as long as the image), which it pads.
 PLAN_GEOMETRIES = [
-    ((2160, 3840, 3), "420", 240, False),
-    ((8, 1080, 1920, 3), "420", 120, False),
-    ((2160, 3840, 3), "444", 480, False),
-    ((2160, 3840, 3), "422", 240, False),
-    ((2160, 3840, 3), "420", 1, False), ((2160, 3840, 3), "420", 0, False),
-    ((2160, 3840, 3), "420", 7, False),
-    ((1080, 1920, 3), "420", 120, False),
-    ((2160, 3840, 3), "420", 240, True), ((2160, 3840, 3), "420", 7, True),
-    ((8, 1080, 1920, 3), "420", 120, True),
+    ((2160, 3840, 3), "420", 240, False, "as_is"),
+    ((8, 1080, 1920, 3), "420", 120, False, "as_is"),
+    ((2160, 3840, 3), "444", 480, False, "as_is"),
+    ((2160, 3840, 3), "422", 240, False, "as_is"),
+    ((2160, 3840, 3), "420", 1, False, "as_is"),
+    ((2160, 3840, 3), "420", 0, False, "as_is"),
+    ((2160, 3840, 3), "420", 7, False, "as_is"),
+    ((1080, 1920, 3), "420", 120, False, "as_is"),
+    ((2160, 3840, 3), "420", 240, True, "as_is"),
+    ((2160, 3840, 3), "420", 7, True, "as_is"),
+    ((8, 1080, 1920, 3), "420", 120, True, "as_is"),
+    ((2160, 3840, 3), "420", 240, False, "misaligned"),
+    ((1080, 1920, 3), "420", 120, False, "transposed"),
+    ((1080, 1916, 3), "420", 120, False, "as_is"),
+    ((8, 16, 3), "420", 1, False, "as_is"),
 ]
+PLAN_IDS = [f"shape{i}-{mode}-{restart}-{dc}" if i < 11 else
+            f"{layout}-{'x'.join(map(str, shape[:2]))}-{mode}-{restart}"
+            for i, (shape, mode, restart, dc, layout)
+            in enumerate(PLAN_GEOMETRIES)]
 
 
-@pytest.mark.parametrize("shape,mode,restart,pixel_dc", PLAN_GEOMETRIES)
+def _per_kernel_path(x, t, mode, restart, batch):
+    """The default route's wrappers one by one, composed here: the pixel
+    kernel, the block pack and the merge (``encoder._segments``), then the
+    stuffing wrapper of the scan's segment count."""
+    n, h, w = (x.shape[0] if batch else 1), x.shape[-3], x.shape[-2]
+    my, mx = ops.mcu_grid(h, w, mode)
+    if batch:
+        spi = encoder.batch_segments(my * mx, restart)
+        n_seg, mps = n * spi, restart
+    else:
+        n_seg, mps = encoder.geometry(my * mx, restart)
+        spi = n_seg
+    sw, sb = encoder._segments(x if batch else x[None], t, mode, restart,
+                               n_seg, mps)
+    if n_seg == 1 and not batch:
+        return compact.compact_segments_stuffed(sw, sb, restart)
+    out = compact.compact_segments_stuffed_grouped(sw, sb, restart, spi)
+    return out if batch else out[:2]
+
+
+@pytest.mark.parametrize("shape,mode,restart,pixel_dc,layout",
+                         PLAN_GEOMETRIES, ids=PLAN_IDS)
 def test_planned_chain_equals_per_kernel_path_and_reference(
-        dev, monkeypatch, shape, mode, restart, pixel_dc):
+        dev, monkeypatch, shape, mode, restart, pixel_dc, layout):
     """The default route from its plan (``chain``): one native call a call,
     each kernel's launch count (K12's with PIXEL_DC) up by one as the
-    chain reports it, the plan built once and then hit; its scan (and a
-    batch's offsets) byte for byte the per-kernel path's, taken by the
-    same input at an address one byte off, and the plain reference's
-    (``portbench/reference``). Each call's outputs are its own: the first
-    call's scan is intact after the second."""
+    chain reports it, the plan built once and then hit, a fold where K1
+    folds and a gather where the image is padded first; its scan (and a
+    batch's offsets) byte for byte the per-kernel path's on the same input
+    and the plain reference's (``portbench/reference``). Each call's
+    outputs are its own: the first call's scan is intact after the
+    second."""
     from portbench import frames
     from portbench.reference import jpeg
     monkeypatch.setattr(fused_dctq, "PIXEL_DC", pixel_dc)
     batch = len(shape) == 4
     n, h, w = (shape[0] if batch else 1), shape[-3], shape[-2]
-    cfg = {"canvas": [h, w], "height": h, "width": w, "batch": n,
-           "distinct": 1, "noise_sd": 12.0}
+    made = (w, h) if layout == "transposed" else (h, w)
+    cfg = {"canvas": list(made), "height": made[0], "width": made[1],
+           "batch": n, "distinct": 1, "noise_sd": 12.0}
     x = frames.make_inputs(cfg, 2**31 + 18 + restart, dev)[0]
+    if layout == "transposed":
+        x = x.transpose(0, 1)
+    elif layout == "misaligned":
+        y = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)[1:]
+        x = y.view(x.shape).copy_(x)
+    assert x.is_contiguous() == (layout != "transposed")
+    assert (x.data_ptr() % 16 != 0) == (layout == "misaligned")
     t = EncoderTables.for_quality(90, mode, dev)
     fn = encoder.device_encode_batch if batch else encoder.device_encode
     kernels = (fused_dctq.PIXEL, fused_dctq.PIXEL_DC_PLANE,
@@ -1562,19 +1608,19 @@ def test_planned_chain_equals_per_kernel_path_and_reference(
     chain.PLANS.built = chain.PLANS.hits = chain.PLANS.fallbacks = 0
     fused_dctq.PADS.folds = fused_dctq.PADS.gathers = 0
     planned = [fn(x, t, mode, restart) for _ in range(2)]
-    one_seg = restart == 0 and not batch
+    my, mx = ops.mcu_grid(h, w, mode)
+    one_seg = not batch and encoder.geometry(my * mx, restart)[0] == 1
     assert [k.launches for k in kernels] == [
         2 * (not pixel_dc), 2 * pixel_dc, 2, 2, 2 * (not one_seg),
         2 * one_seg, 2]
+    mh, mw = ops.mcu_shape(mode)
+    fold = fused_dctq.row_fold(h, w, mode)
+    pad = not fold and bool(h % mh or w % mw)
     assert (fused_dctq.PADS.folds, fused_dctq.PADS.gathers) == (
-        2 * fused_dctq.row_fold(h, w, mode), 0)
+        2 * fold, 2 * pad)
     assert (chain.PLANS.built, chain.PLANS.hits,
             chain.PLANS.fallbacks) == (1, 1, 0)
-    off = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)[1:]
-    y = off.view(x.shape)
-    y.copy_(x)
-    per_kernel = fn(y, t, mode, restart)
-    assert chain.PLANS.fallbacks == 1
+    per_kernel = _per_kernel_path(x, t, mode, restart, batch)
 
     def scan_of(out):
         total = int(out[1])

@@ -178,9 +178,10 @@ def test_factored_plain_on_a_batch_view(mode):
 @pytest.mark.parametrize("mode", MODES + ("gray",))
 def test_encoder_tables_carry_the_factors(mode, monkeypatch):
     """for_quality and from_numpy factor once on the host, in the mode
-    read off the operator; the wrappers' lookup then finds the tables' own
-    factors, after a move too, without factoring again; an operator changed
-    in place, or the same operator with another bias, is factored anew."""
+    read off the operator, and ``kernel_factors`` gives the encoder's
+    kernels those very tensors, after a move too; the memo of the wrappers
+    that take (img, m, bias) factors an operator once, to the same
+    factors, and anew once it is changed in place or given another bias."""
     t = EncoderTables.for_quality(90, mode)
     if mode == "gray":
         assert t.lum is None and t.chroma is None and t.subsampling is None
@@ -195,20 +196,25 @@ def test_encoder_tables_carry_the_factors(mode, monkeypatch):
         t.block_bias)))
     assert ref.subsampling == mode and torch.equal(ref.chroma, t.chroma)
     moved = t.to(torch.float32)
+    got = fused_dctq.kernel_factors(moved, mode)
+    assert (got[0] is moved.lum and got[1] is moved.chroma
+            and got[2] is moved.bias)
     calls = []
     real = fused_dctq.factor_operator
     monkeypatch.setattr(fused_dctq, "factor_operator",
                         lambda *a: calls.append(a) or real(*a))
-    got = fused_dctq.cuda_factors(moved.m, moved.bias, mode)
-    assert got[0] is moved.lum and got[1] is moved.chroma and not calls
+    for _ in range(2):
+        got = fused_dctq.cuda_factors(moved.m, moved.bias, mode)
+        assert len(calls) == 1
+        assert torch.equal(got[0], t.lum) and torch.equal(got[1], t.chroma)
     moved.m.mul_(1.0)           # in place: a new version of the operator
     fused_dctq.cuda_factors(moved.m, moved.bias, mode)
-    assert len(calls) == 1
+    assert len(calls) == 2
     other = moved.bias.clone()
     fused_dctq.cuda_factors(moved.m, other, mode)
-    assert len(calls) == 2 and calls[-1][2] is other
+    assert len(calls) == 3 and calls[-1][2] is other
     fused_dctq.cuda_factors(moved.m, other, mode)
-    assert len(calls) == 2
+    assert len(calls) == 3
 
 
 def test_factor_lookup_checks_the_width_with_the_given_bias():
@@ -352,13 +358,13 @@ def test_coefficient_bound_counts_exactly():
 def test_fused_wrapper_refuses_coefficients_past_int16():
     """The 4:2:0 operator and bias times 64 still factor and are exact in
     float64, but their coefficients could reach 64 * 3,064: the tables
-    record that bound, and the fused wrapper and its twin raise on it."""
+    hold that bound, and the fused wrapper and its twin raise on it."""
     t = EncoderTables.for_quality(90, "420")
     big = EncoderTables(t.m * 64, t.bias * 64, *t.luts(), t.block_m,
                         t.block_bias)
     assert big.coefficient_bound == 64 * t.coefficient_bound
-    assert fused_dctq.recorded_coefficient_bound(
-        big.m, big.bias, "420") == big.coefficient_bound
+    assert fused_dctq.coefficient_bound(big.m, big.bias) == \
+        big.coefficient_bound
     x = torch.from_numpy(_random(16, 16, 3))
     for fn in (fused_pipeline.fused_pixel_block_pack_pairs,
                fused_pipeline.fused_pixel_block_pack_pairs_plain):

@@ -1,14 +1,15 @@
 """The default route's cached plan (``jpegtpu_torch/kernels/chain.py``), on
 the CPU: which calls of ``encoder.device_encode`` and
-``device_encode_batch`` take it and which take the per-kernel path, its
-key and its reuse, the rebuild after a write to the tables, the sizes and
-places of its buffers against the per-kernel wrappers' own, and the C
-interface of ``csrc/chain.cu`` against its ctypes mirror. The chain runs
-only on the card (``tests/test_torch_cuda.py``); here the tensors are on
-the meta device (or the CPU), ``chain.DEVICE_TYPE`` names that device,
-and the native call is replaced by a recorder, which reports the launchers
-that ``jt_encode_chain`` calls for the plan it is given. Imports no
-JAX."""
+``device_encode_batch`` take it and which take the per-kernel path, the
+images it copies or pads and the operands it refuses, as the wrappers
+refuse them, its key and its reuse, the rebuild after a write to the
+tables, the sizes and places of its buffers against the per-kernel
+wrappers' own, and the C interface of ``csrc/chain.cu`` against its ctypes
+mirror. The chain runs only on the card (``tests/test_torch_cuda.py``);
+here the tensors are on the meta device (or the CPU), ``_build.DEVICE_TYPE``
+names that device, and the native call is replaced by a recorder, which
+reports the launchers that ``jt_encode_chain`` calls for the plan it is
+given. Imports no JAX."""
 
 import copy
 import ctypes
@@ -19,10 +20,13 @@ import pytest
 import torch
 
 from jpegtpu_torch import encoder
+from jpegtpu_torch.core import ops
 from jpegtpu_torch.encoder import EncoderTables
 from jpegtpu_torch.kernels import (_build, chain, compact, entropy_pack,
                                    fused_dctq)
 from test_torch_build import _ctype, _launchers
+
+SEGMENTS = encoder._segments            # the per-kernel path's first stage
 
 
 class _PerKernel(Exception):
@@ -54,7 +58,7 @@ def calls(monkeypatch):
     counters at 0."""
     recorded = []
     monkeypatch.setattr(chain.CHAIN, "launch", _record(recorded))
-    monkeypatch.setattr(chain, "DEVICE_TYPE", "meta")
+    monkeypatch.setattr(_build, "DEVICE_TYPE", "meta")
 
     def per_kernel(*args, **kwargs):
         raise _PerKernel
@@ -78,7 +82,7 @@ def _call(imgs, tables, mode, restart, batch=False, **kw):
     fn = encoder.device_encode_batch if batch else encoder.device_encode
     try:
         return fn(imgs, tables, mode, restart, **kw)
-    except (_PerKernel, encoder.BatchGeometryError):
+    except _PerKernel:
         return None
 
 
@@ -100,53 +104,37 @@ PLANNED = [
 ]
 
 
-def _misaligned(shape):
+def _misaligned(shape, device="meta"):
     n = 1
     for s in shape:
         n *= s
-    return _image((n + 1,))[1:].view(shape)
+    return _image((n + 1,), device)[1:].view(shape)
 
 
-def _transposed(shape):
+def _transposed(shape, device="meta"):
     h, w, c = shape
-    return _image((w, h, c)).transpose(0, 1)
+    return _image((w, h, c), device).transpose(0, 1)
 
 
-# (case, image, tables' mode, mode, restart, batch, keywords): calls that
-# take the per-kernel path.
-FALLBACKS = [
-    ("cpu_tensor", lambda: _image((64, 64, 3), "cpu"), "420", "420", 4,
-     False, {}),
-    ("gray", lambda: _image((64, 64)), "gray", "gray", 8, False, {}),
-    ("444s", lambda: _image((64, 64, 3)), "444s", "444s", 8, False, {}),
-    ("dma", lambda: _image((64, 64, 3)), "420", "420", 4, False,
+# (case, image, mode, restart, batch, keywords): calls that take the
+# per-kernel path: every route but the default, every device but the
+# card, the modes the chain does not take, and on the default route the
+# one shape the chain leaves to it.
+PER_KERNEL = [
+    ("cpu_tensor", lambda: _image((64, 64, 3), "cpu"), "420", 4, False, {}),
+    ("gray", lambda: _image((64, 64)), "gray", 8, False, {}),
+    ("444s", lambda: _image((64, 64, 3)), "444s", 8, False, {}),
+    ("dma", lambda: _image((64, 64, 3)), "420", 4, False,
      {"pixel_path": "dma"}),
-    ("xla", lambda: _image((64, 64, 3)), "420", "420", 4, False,
+    ("xla", lambda: _image((64, 64, 3)), "420", 4, False,
      {"pixel_path": "xla"}),
-    ("fuse_bp", lambda: _image((64, 64, 3)), "420", "420", 4, False,
+    ("fuse_bp", lambda: _image((64, 64, 3)), "420", 4, False,
      {"fuse_bp": True}),
-    ("host_stuffing", lambda: _image((64, 64, 3)), "420", "420", 4, False,
+    ("host_stuffing", lambda: _image((64, 64, 3)), "420", 4, False,
      {"device_stuff": False}),
-    ("width_not_whole_mcus", lambda: _image((64, 200, 3)), "420", "420",
-     13, False, {}),
-    ("pad_as_long_as_the_image", lambda: _image((8, 16, 3)), "420", "420",
-     1, False, {}),
-    ("misaligned", lambda: _misaligned((64, 64, 3)), "420", "420", 4,
-     False, {}),
-    ("not_contiguous", lambda: _transposed((64, 64, 3)), "420", "420", 4,
-     False, {}),
-    ("not_u8", lambda: torch.empty((64, 64, 3), dtype=torch.int16,
-                                   device="meta"), "420", "420", 4, False,
-     {}),
     # mps * 32 * 314 words >= 2^31: the merge's guard needs a sync.
     ("segment_may_reach_2_31_bits", lambda: _image((16, 16 * 213_800, 3)),
-     "420", "420", 0, False, {}),
-    ("batch_restart_not_dividing", lambda: _image((2, 32, 48, 3)), "420",
-     "420", 4, True, {}),
-    ("batch_restart_0", lambda: _image((2, 32, 48, 3)), "420", "420", 0,
-     True, {}),
-    ("tables_of_another_mode", lambda: _image((64, 64, 3)), "420", "422",
-     8, False, {}),
+     "420", 0, False, {}),
 ]
 
 
@@ -159,31 +147,137 @@ def test_default_route_takes_the_plan(calls, case, shape, mode, restart,
     assert _counts() == (1, 0, 0)
 
 
-@pytest.mark.parametrize("case,make,tables_mode,mode,restart,batch,kw",
-                         FALLBACKS, ids=[c[0] for c in FALLBACKS])
-def test_other_calls_take_the_per_kernel_path(calls, case, make,
-                                              tables_mode, mode, restart,
-                                              batch, kw):
-    out = _call(make(), _tables(tables_mode), mode, restart, batch, **kw)
+@pytest.mark.parametrize("case,make,mode,restart,batch,kw", PER_KERNEL,
+                         ids=[c[0] for c in PER_KERNEL])
+def test_other_calls_take_the_per_kernel_path(calls, case, make, mode,
+                                              restart, batch, kw):
+    out = _call(make(), _tables(mode), mode, restart, batch, **kw)
     assert out is None and calls == []
     assert _counts() == (0, 0, 1)
 
 
-def test_tables_on_another_device_take_the_per_kernel_path(calls):
-    assert _call(_image((64, 64, 3)), _tables("420", "cpu"), "420", 4) is None
-    assert _counts() == (0, 0, 1)
+def _random(shape):
+    gen = torch.Generator().manual_seed(sum(shape))
+    return torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen)
+
+
+# (case, image, what the chain reads, restart, padded): default-route
+# images the chain cannot read where they lie, on the CPU standing in for
+# the card: padded to whole MCUs (a width that is not whole MCUs, a row
+# pad as long as the image), or copied (misaligned, not contiguous).
+READABLE = [
+    ("width_not_whole_mcus", lambda: _random((64, 200, 3)),
+     lambda x: ops.pad_to_multiple(x, (16, 16)), 13, True),
+    ("pad_as_long_as_the_image", lambda: _random((8, 16, 3)),
+     lambda x: ops.pad_to_multiple(x, (16, 16)), 1, True),
+    ("misaligned", lambda: _misaligned((64, 64, 3), "cpu").copy_(
+        _random((64, 64, 3))), lambda x: x, 4, False),
+    ("not_contiguous", lambda: _transposed((64, 64, 3), "cpu").copy_(
+        _random((64, 64, 3))), lambda x: x, 4, False),
+]
+
+
+@pytest.mark.parametrize("case,make,reads,restart,padded", READABLE,
+                         ids=[c[0] for c in READABLE])
+def test_an_image_the_chain_cannot_read_is_made_readable(
+        calls, monkeypatch, case, make, reads, restart, padded):
+    """The call takes the plan, built for the shape the chain reads; the
+    chain reads, at a 16-byte aligned address, the bytes the per-kernel
+    path's kernel reads: the image padded by ``pad_mcus`` (a gather,
+    counted), or a contiguous copy of it. A second call is a hit."""
+    monkeypatch.setattr(_build, "DEVICE_TYPE", "cpu")
+    img, t = make(), _tables("420", "cpu")
+    want = reads(img).contiguous().reshape(-1)
+    seen = []
+
+    def launch(dev, *args):
+        seen.append((args[1], bytes((ctypes.c_uint8 * want.numel())
+                                    .from_address(args[1]))))
+        _report(args[0], args[-1])
+    monkeypatch.setattr(chain.CHAIN, "launch", launch)
+    fused_dctq.PADS.folds = fused_dctq.PADS.gathers = 0
+    for _ in range(2):
+        assert _call(img, t, "420", restart) is not None
+    assert _counts() == (1, 1, 0)
+    assert (fused_dctq.PADS.folds, fused_dctq.PADS.gathers) == (
+        0, 2 * padded)
+    for ptr, got in seen:
+        assert ptr % 16 == 0 and ptr != img.data_ptr()
+        assert got == want.numpy().tobytes()
+    (plan,) = t.plans.values()
+    h, w = reads(img).shape[:2]
+    assert (plan.args.h, plan.args.row_bytes, plan.args.n_mcu) == (
+        h, 3 * w, (h // 16) * (w // 16))
+
+
+# (case, image, tables' mode, mode, restart, batch, exception, message):
+# default-route calls whose operands the wrappers refuse; ``chain.plan``
+# refuses them with the same check.
+REFUSED = [
+    ("not_u8", lambda d: torch.empty((64, 64, 3), dtype=torch.int16,
+                                     device=d), "420", "420", 4, False,
+     ValueError, "uint8"),
+    ("tables_of_another_mode", lambda d: _image((64, 64, 3), d), "420",
+     "422", 8, False, ValueError, "422 operator must be"),
+    ("444_tables_factored_as_444s", lambda d: _image((64, 64, 3), d),
+     "444s", "444", 8, False, ValueError, "444s"),
+    ("batch_restart_not_dividing", lambda d: _image((2, 32, 48, 3), d),
+     "420", "420", 4, True, encoder.BatchGeometryError, "dividing"),
+    ("batch_restart_0", lambda d: _image((2, 32, 48, 3), d), "420", "420",
+     0, True, encoder.BatchGeometryError, "dividing"),
+]
+
+
+@pytest.mark.parametrize("case,make,tables_mode,mode,restart,batch,exc,msg",
+                         REFUSED, ids=[c[0] for c in REFUSED])
+def test_operands_the_wrappers_refuse_raise_on_the_default_route(
+        calls, monkeypatch, case, make, tables_mode, mode, restart, batch,
+        exc, msg):
+    """``chain.plan`` raises the exception the per-kernel path raises
+    on the same operands (its wrappers run on the CPU), and builds,
+    launches and counts nothing."""
+    with pytest.raises(exc, match=msg):
+        _call(make("meta"), _tables(tables_mode), mode, restart, batch)
+    assert calls == [] and _counts() == (0, 0, 0)
+    if case != "444_tables_factored_as_444s":   # the CPU reads no factors
+        monkeypatch.setattr(encoder, "_segments", SEGMENTS)
+        with pytest.raises(exc, match=msg):
+            _call(make("cpu"), _tables(tables_mode, "cpu"), mode, restart,
+                  batch)
+
+
+def test_tables_on_another_device_raise(calls):
+    """A card image with tables elsewhere: ``chain.plan``'s device check, the
+    wrappers' (``_build.check_cuda``), raises."""
+    with pytest.raises(ValueError, match="CUDA tensors on one device"):
+        _call(_image((64, 64, 3)), _tables("420", "cpu"), "420", 4)
+    assert calls == [] and _counts() == (0, 0, 0)
+
+
+def test_a_kept_plan_refuses_an_image_of_another_dtype(calls):
+    """A call of a kept plan's shape with an image that is not u8 is
+    another key: its build raises, and the kept plan stays."""
+    t = _tables("420")
+    _call(_image((64, 64, 3)), t, "420", 4)
+    with pytest.raises(ValueError, match="uint8"):
+        _call(torch.empty((64, 64, 3), dtype=torch.int16, device="meta"), t,
+              "420", 4)
+    assert len(calls) == 1 and len(t.plans) == 1
+    assert _counts() == (1, 0, 0)
 
 
 def test_a_second_identical_call_reuses_the_plan(calls):
-    """One plan, keyed (batch, shape, mode, restart, PIXEL_DC), and the
-    same plan and image on every native call (each with its own buffers
-    and report); each call after the first a hit."""
+    """One plan, keyed (batch, shape, dtype, device, mode, restart,
+    device_stuff, pixel_path, fuse_bp, PIXEL_DC), and the same plan and
+    image on every native call (each with its own buffers and report);
+    each call after the first a hit."""
     t, img = _tables("420"), _image((2160, 3840, 3))
     for _ in range(3):
         _call(img, t, "420", 240)
     assert _counts() == (1, 2, 0)
     (key, plan), = t.plans.items()
-    assert key == (False, torch.Size((2160, 3840, 3)), "420", 240,
+    assert key == (False, torch.Size((2160, 3840, 3)), torch.uint8,
+                   torch.device("meta"), "420", 240, True, "nat", False,
                    fused_dctq.PIXEL_DC)
     assert [args[:2] for _, args in calls] == [
         (plan.address, img.data_ptr())] * 3
@@ -245,18 +339,19 @@ def test_a_planned_call_counts_each_kernel_once(calls, monkeypatch, pixel_dc,
         (fused_dctq.DC_LANES, 1) if pixel_dc else (384, 64))
 
 
-@pytest.mark.parametrize("write", ["m", "bias", "dc_codes", "dc_lens",
+@pytest.mark.parametrize("write", ["bias", "dc_codes", "dc_lens",
                                    "ac_codes", "ac_lens", "lum", "chroma",
-                                   "replace_m", "to"])
+                                   "replace_lum", "replace_bias", "to"])
 def test_a_write_to_the_tables_rebuilds_the_plan(calls, monkeypatch, write):
     """An in-place write to any tensor the plan read, a buffer replaced, or
     the module moved (``EncoderTables._apply``): the next call builds the
     plan again."""
-    monkeypatch.setattr(chain, "DEVICE_TYPE", "cpu")
+    monkeypatch.setattr(_build, "DEVICE_TYPE", "cpu")
     t, img = _tables("420", "cpu"), _image((32, 32, 3), "cpu")
     _call(img, t, "420", 2)
-    if write == "replace_m":
-        t.m = t.m.clone()
+    if write.startswith("replace_"):
+        name = write[len("replace_"):]
+        setattr(t, name, getattr(t, name).clone())
     elif write == "to":
         t.to("cpu")
         assert t.plans == {}
@@ -268,10 +363,26 @@ def test_a_write_to_the_tables_rebuilds_the_plan(calls, monkeypatch, write):
     assert _counts() == (2, 1, 0)
 
 
+@pytest.mark.parametrize("write", ["m", "replace_m"])
+def test_a_write_to_m_keeps_the_plan(calls, monkeypatch, write):
+    """The chain reads the tables' factors, made when the tables were, and
+    not the dense operator m: a write to m, in place or by a new tensor,
+    leaves the plan as it is."""
+    monkeypatch.setattr(_build, "DEVICE_TYPE", "cpu")
+    t, img = _tables("420", "cpu"), _image((32, 32, 3), "cpu")
+    _call(img, t, "420", 2)
+    if write == "m":
+        t.m.add_(0)
+    else:
+        t.m = t.m.clone()
+    _call(img, t, "420", 2)
+    assert _counts() == (1, 1, 0)
+
+
 def test_a_copy_of_the_tables_builds_its_own_plan(calls, monkeypatch):
     """A plan holds the device pointers of the tensors it read, so a copy of
     the tables (deepcopy, pickle) carries none and builds its own."""
-    monkeypatch.setattr(chain, "DEVICE_TYPE", "cpu")
+    monkeypatch.setattr(_build, "DEVICE_TYPE", "cpu")
     t, img = _tables("420", "cpu"), _image((32, 32, 3), "cpu")
     _call(img, t, "420", 2)
     for c in (copy.deepcopy(t), pickle.loads(pickle.dumps(t))):
@@ -281,15 +392,19 @@ def test_a_copy_of_the_tables_builds_its_own_plan(calls, monkeypatch):
     assert _counts() == (3, 0, 0)
 
 
-def test_a_stale_plan_with_an_image_it_cannot_read_builds_nothing(
+def test_a_stale_plan_with_an_image_it_cannot_read_is_rebuilt_and_copies(
         calls, monkeypatch):
-    monkeypatch.setattr(chain, "DEVICE_TYPE", "cpu")
+    """A write to the tables, then a misaligned image of the plan's shape:
+    the call builds the plan again and hands the chain an aligned copy."""
+    monkeypatch.setattr(_build, "DEVICE_TYPE", "cpu")
     t = _tables("420", "cpu")
     _call(_image((64, 64, 3), "cpu"), t, "420", 4)
     t.bias.add_(0)
-    bad = _image((64 * 64 * 3 + 1,), "cpu")[1:].view(64, 64, 3)
-    assert _call(bad, t, "420", 4) is None
-    assert _counts() == (1, 0, 1)
+    bad = _misaligned((64, 64, 3), "cpu")
+    assert _call(bad, t, "420", 4) is not None
+    assert _counts() == (2, 0, 0)
+    image = calls[-1][1][1]
+    assert image % 16 == 0 and image != bad.data_ptr()
 
 
 @pytest.mark.parametrize("shape,mode,restart,batch", [
@@ -370,7 +485,7 @@ def test_a_planned_call_returns_what_the_per_kernel_path_returns(
     img = _image((2, 32, 32, 3) if batch else (32, 32, 3), "cpu").zero_()
     fn = encoder.device_encode_batch if batch else encoder.device_encode
     want = fn(img, t, "420", 2)                 # the CPU's per-kernel path
-    monkeypatch.setattr(chain, "DEVICE_TYPE", "cpu")
+    monkeypatch.setattr(_build, "DEVICE_TYPE", "cpu")
     chain.PLANS.built = 0
     got = fn(img, t, "420", 2)
     assert chain.PLANS.built == 1
@@ -445,7 +560,7 @@ def test_a_planned_call_counts_what_the_chain_reports(monkeypatch, reported):
         for i in reported:
             launched[i] = 1
     monkeypatch.setattr(chain.CHAIN, "launch", launch)
-    monkeypatch.setattr(chain, "DEVICE_TYPE", "meta")
+    monkeypatch.setattr(_build, "DEVICE_TYPE", "meta")
     for k in chain.CHAINED:
         k.launches = 0
     fused_dctq.PADS.folds = 0

@@ -74,7 +74,7 @@ class _Recorder:
     def __init__(self):
         self.calls = []
 
-    def __call__(self, kernel, img, m, bias, subsampling, *extra,
+    def __call__(self, kernel, img, factors, subsampling, *extra,
                  with_dc=False, mcu_rows=None):
         self.calls.append((kernel, img, extra, with_dc, mcu_rows))
         return ("out", "dc") if with_dc else "out"
