@@ -208,10 +208,11 @@ def ptxas_entries(log: str, names) -> list:
         if not m or not any(n in m.group(1) for n in names):
             continue
         name = next(n for n in names if n in m.group(1))
-        args = re.search(name + r"(I\S*?E)E", m.group(1))
+        # The rest of the name (pixel_mma_kernel_halves) and the arguments.
+        args = re.search(name + r"([a-z_]*)(I\S*?E)E", m.group(1))
         props = " ".join(x.strip().replace("ptxas info    : ", "")
                          for x in lines[i + 2:i + 4])
-        out.append((name + (args.group(1) if args else ""), props))
+        out.append((name + "".join(args.groups()) if args else name, props))
     return out
 
 
@@ -1312,12 +1313,13 @@ def main() -> int:
         line(f"{label} kernel (wrapper + glue)", times[label][0])
         line(f"{label} plain twin", times[label][1])
     # The pixel kernels at 4:2:0 alone (profiler), by their template
-    # arguments: K1, K12 (kDc, its DC plane), K13 (kI8, int8 input), K14,
-    # K11 (MCU height and width, tile).
+    # arguments: K1, K12 (kDc, its DC plane), K13 (kI8, int8 input), whose
+    # body (pixel_mma_kernel or pixel_mma_kernel_halves) the geometry
+    # picks, K14, K11 (MCU height and width, tile).
     pixel_keys = {
-        "pixel": ("pixel_mma_kernel<16, 16, 64, 32, false, false>",),
-        "pixel_dc": ("pixel_mma_kernel<16, 16, 64, 32, false, true>",),
-        "pixel_i8": ("pixel_mma_kernel<16, 16, 64, 32, true, false>",),
+        "pixel": ("pixel_mma_kernel", "<16, 16, 64, 32, false, false>"),
+        "pixel_dc": ("pixel_mma_kernel", "<16, 16, 64, 32, false, true>"),
+        "pixel_i8": ("pixel_mma_kernel", "<16, 16, 64, 32, true, false>"),
         "pixel_dma": ("pixel_dma_kernel(",),
         "fused_px_bp": ("fused_px_bp_kernel<16, 16, 32>",)}
     for n, keys in pixel_keys.items():
@@ -1635,7 +1637,7 @@ def main() -> int:
         for n, dc_arg in (("pixel", "false"), ("pixel_dc", "true")):
             alone = kernel_device_ms(
                 pairs[f"{n} {sub}"][0],
-                f"pixel_mma_kernel<{dims}, false, {dc_arg}>")
+                "pixel_mma_kernel", f"<{dims}, false, {dc_arg}>")
             print(f"[time] {n} kernel alone (profiler), {sub} {w}x{h}: "
                   f"{alone} ms  [{card}]")
 

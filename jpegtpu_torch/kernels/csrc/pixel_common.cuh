@@ -1,6 +1,11 @@
 // The factored pixel product shared by the pixel kernels (pixel_mma.cu's
 // K1, K12 and K13, pixel_dma.cu's K14) and the fused front end
-// (fused_px_bp.cu's K11): an MCU's quantized zigzag coefficients are
+// (fused_px_bp.cu's K11). K11, K14 and K1's 4:2:2 and 4:4:4s instances keep
+// this f32-fragment product (tile_product, each B value converted to float64
+// at every use); K1, K12 and K13 at 4:2:0 and 4:4:4 run pixel_mma.cu's
+// float64 half-operator product beside a staging ring instead, on this
+// header's Factored, Staging, group_sums and round_half_away, and the
+// mbarriers at its end. An MCU's quantized zigzag coefficients are
 // round_half_away(tile . M + bias), computed from the two factors of M that
 // jpegtpu_torch.kernels.fused_dctq.factor_operator checks M against, on the
 // float64 tensor cores (mma.sync m16n8k8 .f64):
@@ -384,5 +389,46 @@ struct Staging {
     }
   }
 };
+
+// ---------------------------------------------------------------------------
+// mbarriers in shared memory, for the staging rings of K14 (pixel_dma.cu)
+// and of K1's half-operator body (pixel_mma.cu).
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
 
 }  // namespace jt

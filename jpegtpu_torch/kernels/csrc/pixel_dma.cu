@@ -41,49 +41,12 @@ constexpr int kBarrierOffset = F::kPixelOffset + kStages * F::kTileBytes;
 constexpr int kSmemBytes = kBarrierOffset + 2 * kStages * 8;
 static_assert(kSmemBytes <= 232448, "shared memory");
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-}
-
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      "[%0], [%1], %2, [%3];\n" ::"r"(jt::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(jt::smem_addr(bar))
       : "memory");
 }
 
@@ -113,8 +76,8 @@ pixel_dma_kernel(const uint8_t* __restrict__ img,
                      kThreads);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, kConsumers);
+      jt::mbar_init(full + s, 1);
+      jt::mbar_init(empty + s, kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -125,10 +88,10 @@ pixel_dma_kernel(const uint8_t* __restrict__ img,
     for (long long tile = blockIdx.x; tile < n_tiles;
          tile += gridDim.x, ++it) {
       const int s = it % kStages;
-      if (it >= kStages) mbar_wait(empty + s, ((it / kStages) - 1) & 1);
+      if (it >= kStages) jt::mbar_wait(empty + s, ((it / kStages) - 1) & 1);
       const long long m0 = tile * kTile;
       const int valid = (int)(n_mcu - m0 < kTile ? n_mcu - m0 : kTile);
-      if (lane == 0) mbar_expect(full + s, (uint32_t)valid * 768);
+      if (lane == 0) jt::mbar_expect(full + s, (uint32_t)valid * 768);
       __syncwarp();
       uint8_t* dst = stage + s * F::kTileBytes;
       for (int k = 0; k < valid;) {             // runs within one MCU row
@@ -149,14 +112,14 @@ pixel_dma_kernel(const uint8_t* __restrict__ img,
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
     const int s = it % kStages;
     const uint8_t* px = stage + s * F::kTileBytes;
-    mbar_wait(full + s, (it / kStages) & 1);
+    jt::mbar_wait(full + s, (it / kStages) & 1);
     consumers_sync();           // every consumer is done with the last sums
     jt::group_sums<F>(px, sums, threadIdx.x, kConsumers * 32);
     consumers_sync();
     jt::tile_product<F>(px, sums, lum_f, chroma_f, bias, out, tile * kTile,
                         n_mcu, warp, kConsumers, lane);
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty + s);
+    if (lane == 0) jt::mbar_arrive(empty + s);
   }
 }
 

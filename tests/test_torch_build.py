@@ -6,7 +6,9 @@ the CUDA stream last. ctypes passes what a declaration says, so a
 declaration that drifts from its launcher would show only on the card,
 as undefined behaviour. Imports no JAX."""
 
+import json
 import re
+from pathlib import Path
 
 import pytest
 
@@ -118,3 +120,18 @@ def test_merge_instances_are_symbols_of_their_own():
     text = (_build.CSRC / "seg_merge.cu").read_text()
     args = re.findall(r"return launch<([^>]*)>", text)
     assert len(args) == 4 and len(set(args)) == 4, args
+
+
+def test_pixel_bodies_are_named_for_the_pixel_stage():
+    """Both kernel bodies of pixel_mma.cu (the half-operator body and the
+    f32-fragment one, picked by geometry) carry a name that the benchmark's
+    pixel stage file matches by substring, so either is timed as the pixel
+    stage and never as unstaged device time."""
+    stage = json.loads((Path(__file__).resolve().parent.parent / "portbench"
+                        / "stages" / "pixel.json").read_text())
+    text = (_build.CSRC / "pixel_mma.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(\w+)\s*\(", text)
+    assert len(names) == 2, names
+    for name in names:
+        assert any(k in name for k in stage["kernels"]), name

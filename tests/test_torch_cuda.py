@@ -10,6 +10,7 @@ so it runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest -q -p no:cacheprovider
 """
 
+import ctypes
 import re
 
 import numpy as np
@@ -495,6 +496,92 @@ def test_pixel_kernel_short_last_tile(dev, mode, shape):
     got = fused_dctq.encode_blocks_pairs(img, t.m, t.bias, mode)
     want = fused_dctq.encode_blocks_pairs_plain(img, t.m, t.bias, mode)
     assert torch.equal(got, want)
+
+
+# Each geometry's K1 body (jt_pixel_split) and the dynamic shared memory a
+# block takes (jt_pixel_smem): the half-operator body, whose staging ring
+# fits beside half the operator in float64, at 4:2:0 and 4:4:4; the
+# f32-fragment body at 4:2:2 (a ring of two 96-MCU tiles is past a block's
+# 232,448 bytes) and 4:4:4s (its chroma depth of 48 is not the half's 192);
+# nothing for a geometry no instance takes.
+PIXEL_BODIES = {(16, 16, 64): (1, 224800), (8, 16, 64): (0, 224256),
+                (8, 8, 64): (1, 226080), (8, 8, 16): (0, 110592),
+                (16, 8, 64): (0, 0)}
+
+
+def test_pixel_split_by_geometry(dev):
+    lib = _build.library()
+    got = {}
+    for name in ("jt_pixel_split", "jt_pixel_smem"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+    for geometry in PIXEL_BODIES:
+        got[geometry] = (lib.jt_pixel_split(*geometry),
+                         lib.jt_pixel_smem(*geometry))
+    assert got == PIXEL_BODIES
+
+
+# The benchmark cells' frames, one launch each (the batch's rows folded):
+# (mode, images, rows, columns). Each leaves a count of K1's work items (a
+# tile and a column half) that the grid of one block an SM does not divide,
+# and the 4K 4:2:0 frame's last tile is short (32,400 MCUs, tiles of 32).
+CELL_FRAMES = {"420_3840x2160": ("420", 1, 2160, 3840),
+               "444_3840x2160": ("444", 1, 2160, 3840),
+               "420_8x1920x1080": ("420", 8, 1080, 1920)}
+HALF_TILES = {"420": 32, "444": 64}
+CELL_ROUTES = [(case, route) for case in sorted(CELL_FRAMES)
+               for route in ("pixel", "pixel_dc", "pixel_i8")
+               if route != "pixel_i8" or case == "420_3840x2160"]
+
+
+def _cell_frames(n, h, w, seed):
+    """n frames of the benchmark's kind of content: a smooth pattern plus
+    noise, clipped to u8."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    yy = torch.arange(h, device="cuda").view(1, h, 1, 1)
+    xx = torch.arange(w, device="cuda").view(1, 1, w, 1)
+    smooth = 128 + 60 * torch.sin(xx / 97.0) * torch.cos(yy / 53.0)
+    return (smooth + noise.float() / 255 * 24 - 12).clamp(0, 255).to(
+        torch.uint8).contiguous()
+
+
+@pytest.mark.parametrize("q", [1, 50, 90, 100])
+@pytest.mark.parametrize("case,route", CELL_ROUTES)
+def test_half_operator_body_at_the_cells_sizes(dev, case, route, q):
+    """K1, K12 and K13 at the sizes of the benchmark's cells, which take the
+    half-operator body: one launch of the nat route (K13: the i8 view),
+    coefficients equal to the plain twin's and to the benchmark's plain
+    reference (portbench/reference), and K12's DC plane to the twin's."""
+    from portbench.reference import jpeg
+    mode, n, h, w = CELL_FRAMES[case]
+    mh, mw = fused_dctq.fused_geometry(mode)[:2]
+    n_mcu = n * -(-h // mh) * (w // mw)
+    items = 2 * -(-n_mcu // HALF_TILES[mode])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert items % (sms & ~1)
+    imgs = _cell_frames(n, h, w, seed=h * 7 + n)
+    t = EncoderTables.for_quality(q, mode, dev)
+    if route == "pixel_i8":
+        got, launches = _path_launches(
+            lambda: fused_dctq.encode_blocks_i8_pairs(imgs[0], t.m, t.bias,
+                                                      mode))
+    else:
+        got, launches = _path_launches(
+            lambda: fused_dctq._pixel_nat(imgs, t.m, t.bias,
+                                          fused_dctq.kernel_factors(t, mode),
+                                          mode, route == "pixel_dc"))
+    assert launches == dict(dict.fromkeys(PATH_KERNELS, 0), **{route: 1})
+    coeffs = got[0] if route == "pixel_dc" else got
+    want = torch.cat([fused_dctq.encode_blocks_pairs_plain(
+        im, t.m, t.bias, mode) for im in imgs])
+    assert coeffs.dtype == torch.int32 and torch.equal(coeffs, want)
+    if route == "pixel_dc":
+        assert torch.equal(got[1], fused_dctq.dc_plane(want))
+    ref = torch.cat([jpeg.coefficients(im, q, mode) for im in imgs])
+    assert torch.equal(coeffs.long(), ref)
 
 
 # K12 in every geometry and K13 at 4:2:0 (its only one), by the name of
